@@ -1,0 +1,157 @@
+"""GBLUP pipeline: randomized GRM PCA -> BLUE/BLUP by block CG.
+
+Torch twin of ``miraculix_tpu.gblup`` for ``solver="cg"`` on a
+:class:`GenoMatrix`.  With lam = (1 - h2) / h2 and G VanRaden-scaled:
+
+    beta_hat = (X^T (G + lam I)^-1 X)^-1 X^T (G + lam I)^-1 y     (BLUE)
+    u        = (G + lam I)^-1 (y - X beta_hat)
+    g_hat    = G u                                                (BLUP)
+
+G is never formed: every product with it is two packed products.  The
+random draws (PCA test matrix, simulated phenotypes) are numpy's, seeded as
+in the reference, so both packages see the same inputs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .geno import GenoMatrix
+from .ops.dgemm import dgemm
+from .solve.cg import grm_cg_solve, grm_matvec
+
+
+def _check_container(g) -> None:
+    if not isinstance(g, GenoMatrix):
+        raise NotImplementedError(
+            f"{type(g).__name__}: sharded and streamed containers are not "
+            "ported yet (ROADMAP A12-A13)")
+
+
+def randomized_grm_pca(g: GenoMatrix, k: int = 10, oversample: int = 8,
+                       power_iters: int = 2,
+                       seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Top-k eigenpairs of the (unscaled, centered) GRM by the Halko
+    randomized range finder, G applied as Z_c (Z_c^T .).  Returns
+    (eigenvalues [k], eigenvectors [indiv, k]) as numpy arrays."""
+    _check_container(g)
+    rng = np.random.default_rng(seed)
+    omega = torch.as_tensor(rng.standard_normal((g.indiv, k + oversample)),
+                            dtype=torch.float32, device=g.device)
+    y = grm_matvec(g, omega)
+    for _ in range(power_iters):
+        q, _ = torch.linalg.qr(y)
+        y = grm_matvec(g, q)
+    q, _ = torch.linalg.qr(y)
+    t = q.T @ grm_matvec(g, q)
+    t = 0.5 * (t + t.T)
+    w, v = torch.linalg.eigh(t)
+    idx = torch.argsort(w, descending=True)[:k]
+    return w[idx].cpu().numpy(), (q @ v[:, idx]).cpu().numpy()
+
+
+@dataclasses.dataclass
+class GBLUPResult:
+    beta: np.ndarray        # fixed effects (intercept, covariates, PCs)
+    g_hat: np.ndarray       # genomic values (BLUP)
+    fitted: np.ndarray      # X beta + g_hat
+    pcs: Optional[np.ndarray]
+    cg_iterations: int = 0
+    u: Optional[np.ndarray] = None  # (G_s + lam I)^-1 (y - X beta)
+    converged: bool = True          # every CG solve met ``tol``
+
+
+def gblup(g: GenoMatrix, y: np.ndarray, h2: float = 0.5, n_pcs: int = 10,
+          covariates: Optional[np.ndarray] = None, solver: str = "cg",
+          tol: float = 1e-4, maxiter: int = 2000,
+          seed: int = 0) -> GBLUPResult:
+    """Full GBLUP estimation (reference ``gblup`` semantics, ``solver="cg"``).
+
+    ``tol`` bounds each CG column's residual norm of the unscaled system
+    (Z_c Z_c^T + lam sigma2 I) b' = rhs."""
+    if solver != "cg":
+        raise NotImplementedError(
+            f"solver={solver!r} is not ported yet (ROADMAP A7/A8/A10: "
+            "'dense' needs solve/dense, 'refined' the f64 tier)")
+    _check_container(g)
+    n = g.indiv
+    lam = (1.0 - h2) / h2
+    y = np.asarray(y, dtype=np.float64).reshape(n)
+
+    pcs = None
+    cols = [np.ones((n, 1))]
+    if covariates is not None:
+        cov = np.asarray(covariates, dtype=np.float64)
+        if cov.ndim == 1:
+            cov = cov[:, None]
+        if cov.shape[0] != n:
+            raise ValueError(f"covariates have {cov.shape[0]} rows, "
+                             f"expected {n}")
+        cols.append(cov)
+    if n_pcs > 0:
+        _, pcs = randomized_grm_pca(g, k=n_pcs, seed=seed)
+        cols.append(pcs)
+    x = np.concatenate(cols, axis=1)
+    p = x.shape[1]
+    sigma2 = float(g.sigma2)
+    converged = True
+
+    def _cg(rhs: np.ndarray) -> Tuple[np.ndarray, int]:
+        """(Z_c Z_c^T + lam sigma2 I) b' = rhs; returns (sigma2 b', iters)."""
+        nonlocal converged
+        res = grm_cg_solve(g, rhs, lam=lam * sigma2, scale=False, tol=tol,
+                           maxiter=maxiter)
+        converged &= bool(torch.all(res.residual_norm <= tol))
+        return res.x.cpu().numpy().astype(np.float64) * sigma2, res.iterations
+
+    b, iters = _cg(np.concatenate([x, y[:, None]], axis=1))
+    bx, by = b[:, :p], b[:, p]
+    beta = np.linalg.solve(x.T @ bx, x.T @ by)
+    u, it_u = _cg((y - x @ beta)[:, None])
+    u = u[:, 0]
+    iters += it_u
+    g_hat = grm_matvec(g, torch.as_tensor(u[:, None], dtype=torch.float32,
+                                          device=g.device))
+    g_hat = g_hat.cpu().numpy().astype(np.float64)[:, 0] / sigma2
+    return GBLUPResult(beta=beta, g_hat=g_hat, fitted=x @ beta + g_hat,
+                       pcs=pcs, cg_iterations=iters, u=u, converged=converged)
+
+
+def snp_effects(g: GenoMatrix, res: GBLUPResult) -> np.ndarray:
+    """Per-SNP marker effects alpha = Z_c^T u / sigma2 (g_hat = Z_c alpha)."""
+    _check_container(g)
+    if res.u is None:
+        raise ValueError("GBLUPResult has no random-effect solutions")
+    u = torch.as_tensor(res.u[:, None], dtype=torch.float32, device=g.device)
+    a = dgemm(g, u, trans="t", center=True).cpu().numpy().astype(np.float64)
+    return a[:, 0] / float(g.sigma2)
+
+
+def predict(g_new: GenoMatrix, alpha: np.ndarray,
+            freq_train: np.ndarray) -> np.ndarray:
+    """Score new animals: (Z_new - 2 f_train) alpha, centered by the
+    TRAINING allele frequencies."""
+    c = 2.0 * np.asarray(freq_train, np.float32)
+    out = dgemm(g_new, np.asarray(alpha, np.float32)[:, None], trans="n",
+                center=c)
+    return out.cpu().numpy().astype(np.float64)[:, 0]
+
+
+def simulate_phenotypes(geno: np.ndarray, h2: float = 0.5, n_qtl: int = 100,
+                        seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Additive phenotypes: random QTL effects plus noise scaled to h2, with
+    the reference's draws.  Returns (phenotypes, true breeding values).
+    Only the QTL columns are decoded, so the panel is never copied whole."""
+    rng = np.random.default_rng(seed)
+    n, s = geno.shape
+    qtl = rng.choice(s, size=min(n_qtl, s), replace=False)
+    eff = rng.standard_normal(len(qtl))
+    zq = np.asarray(geno[:, qtl])
+    zq = np.where(zq == 3, 0, zq).astype(np.float64)
+    bv = (zq - zq.mean(0)) @ eff
+    bv /= bv.std() + 1e-12
+    e = rng.standard_normal(n) * np.sqrt((1 - h2) / h2)
+    return bv + e, bv

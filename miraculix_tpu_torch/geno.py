@@ -1,0 +1,216 @@
+"""GenoMatrix: the device-resident compressed genotype container.
+
+Torch twin of ``miraculix_tpu.geno``: both planar16 orientations live on one
+device as int32 words (the reference holds the same bits as uint32), plus the
+per-SNP and per-individual allele frequencies and, optionally, the missing
+coordinates.  ``save``/``load`` use the reference's ``.npz`` layout, and
+:func:`from_reference_state` takes the reference container's fields as numpy
+arrays, so a panel packed by either package is used by the other unchanged.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .io import bed, codec
+
+ROW_MULT = 256  # packed rows pad to this, as in the reference
+
+
+def _words(a) -> torch.Tensor:
+    """planar16 words (uint32 or int32 numpy) -> int32 tensor, same bits."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a.view(np.int32))
+
+
+@dataclasses.dataclass
+class GenoMatrix:
+    """Compressed genotype matrix Z with shape (indiv, snps), values {0,1,2}.
+
+    - ``zq_n``: int32 [indiv_pad, kw_snps], planar16 over the SNP axis
+      ('n' products Z @ B read its twin ``zq_t``; the GRM reads this one).
+    - ``zq_t``: int32 [snps_pad, kw_indiv], planar16 over individuals.
+    - ``freq``: f32 [snps]; ``pseudo_freq``: f32 [indiv] or None.
+    - ``miss_rows_n``/``miss_cols_n``: int64 missing coordinates in
+      (indiv, snps) orientation, or None when not tracked.
+    """
+
+    snps: int
+    indiv: int
+    zq_n: torch.Tensor
+    zq_t: torch.Tensor
+    freq: torch.Tensor
+    pseudo_freq: Optional[torch.Tensor] = None
+    miss_rows_n: Optional[torch.Tensor] = None
+    miss_cols_n: Optional[torch.Tensor] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.zq_n.device
+
+    @property
+    def nbytes(self) -> int:
+        return (self.zq_n.numel() + self.zq_t.numel()) * 4
+
+    @property
+    def sigma2(self) -> torch.Tensor:
+        """2 * sum_s p_s (1 - p_s), the VanRaden scale (f32 scalar)."""
+        return 2.0 * torch.sum(self.freq * (1.0 - self.freq))
+
+    @property
+    def pseudo_sigma2(self) -> torch.Tensor:
+        """2 * sum_i pf_i (1 - pf_i) over per-individual frequencies."""
+        if self.pseudo_freq is None:
+            raise ValueError("GenoMatrix was built without pseudo_freq "
+                             "(rebuild with from_dense/from_plink/from_bed)")
+        pf = self.pseudo_freq
+        return 2.0 * torch.sum(pf * (1.0 - pf))
+
+    # -- frequency-cache family: each one skinny packed product ----------
+    def _ones(self, n: int) -> torch.Tensor:
+        return torch.ones((n, 1), dtype=torch.float32, device=self.device)
+
+    def snp_sums(self) -> torch.Tensor:
+        """Per-SNP allele sums."""
+        from .ops.dgemm import dgemm
+        return dgemm(self, self._ones(self.indiv), trans="t", center=False)[:, 0]
+
+    def indiv_sums(self) -> torch.Tensor:
+        """Per-individual allele sums."""
+        from .ops.dgemm import dgemm
+        return dgemm(self, self._ones(self.snps), trans="n", center=False)[:, 0]
+
+    def freq_sxi(self) -> torch.Tensor:
+        """freqSxI[i] = sum_s freq[s] * Z[i, s]."""
+        from .ops.dgemm import dgemm
+        return dgemm(self, self.freq[:, None], trans="n", center=False)[:, 0]
+
+    def pseudo_freq_sxi(self) -> torch.Tensor:
+        """pseudoFreqSxI[s] = sum_i pf[i] * Z[i, s]."""
+        from .ops.dgemm import dgemm
+        if self.pseudo_freq is None:
+            raise ValueError("pseudo_freq unavailable")
+        return dgemm(self, self.pseudo_freq[:, None], trans="t",
+                     center=False)[:, 0]
+
+    def total_sum(self) -> torch.Tensor:
+        """Sum of all genotype values."""
+        return torch.sum(self.snp_sums())
+
+    def __repr__(self) -> str:
+        return (f"GenoMatrix(snps={self.snps}, indiv={self.indiv}, "
+                f"packed={self.nbytes / 1e6:.1f} MB, device={self.device})")
+
+
+def _container(snps, indiv, zq_n, zq_t, freq, pseudo_freq=None,
+               miss=None, device="cpu") -> GenoMatrix:
+    """GenoMatrix on ``device`` from word tensors and numpy statistics."""
+    def vec(a, dtype):
+        return None if a is None else torch.tensor(
+            np.asarray(a, dtype), device=device)
+
+    mr, mc = (None, None) if miss is None else miss
+    return GenoMatrix(
+        snps=int(snps), indiv=int(indiv), zq_n=zq_n.to(device),
+        zq_t=zq_t.to(device), freq=vec(freq, np.float32),
+        pseudo_freq=vec(pseudo_freq, np.float32),
+        miss_rows_n=vec(mr, np.int64), miss_cols_n=vec(mc, np.int64))
+
+
+def from_reference_state(d: dict, device="cpu") -> GenoMatrix:
+    """Build from the reference GenoMatrix's fields given as numpy arrays
+    (keys ``snps``, ``indiv``, ``zq_n``, ``zq_t``, ``freq`` and optionally
+    ``pseudo_freq``, ``miss_rows_n``, ``miss_cols_n``; None means absent)."""
+    miss = None
+    if d.get("miss_rows_n") is not None:
+        miss = (d["miss_rows_n"], d["miss_cols_n"])
+    return _container(d["snps"], d["indiv"], _words(d["zq_n"]),
+                      _words(d["zq_t"]), d["freq"], d.get("pseudo_freq"),
+                      miss, device)
+
+
+def _pack_pair(geno: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(packing of ``geno``, packing of ``geno.T``) on ``device``, missing
+    zeroed.  The second is packed from row slabs of ``geno`` and only its
+    words are transposed, on the device."""
+    own = _words(codec.pack_planar16(geno, row_mult=ROW_MULT)).to(device)
+    other = _words(codec.pack_planar16_t(geno, row_mult=ROW_MULT))
+    return own, other.to(device).T.contiguous()
+
+
+def from_dense(geno: np.ndarray, freq: Optional[np.ndarray] = None,
+               keep_missing_info: bool = False, device="cpu") -> GenoMatrix:
+    """Pack a dense genotype matrix [indiv, snps] (0/1/2, 3 = missing)."""
+    geno = np.asarray(geno, dtype=np.uint8)
+    miss = codec.missing_positions(geno) if keep_missing_info else None
+    if freq is None:
+        freq = codec.allele_freq(geno, axis=0)
+    zq_n, zq_t = _pack_pair(geno, device)
+    n_indiv, n_snps = geno.shape
+    return _container(n_snps, n_indiv, zq_n, zq_t, freq,
+                      codec.allele_freq(geno, axis=1), miss, device)
+
+
+def from_plink(plink: np.ndarray, snps: int, indiv: int,
+               freq: Optional[np.ndarray] = None, **kw) -> GenoMatrix:
+    """Build from raw PLINK bytes [ceil(indiv/4), snps]."""
+    if plink.shape[1] != snps:
+        raise ValueError(f"plink bytes cover {plink.shape[1]} SNPs, not {snps}")
+    return from_dense(codec.plink_to_dense(plink, indiv), freq=freq, **kw)
+
+
+def from_bed(path: str, freq: Optional[np.ndarray] = None,
+             keep_missing_info: bool = False, device="cpu") -> GenoMatrix:
+    """Build from a PLINK .bed fileset.  The SNP-major payload decodes
+    straight into the [snps, indiv] orientation; no genotypes are
+    transposed."""
+    payload, n_snps, n_indiv = bed.read_bed_payload(path)
+    geno_t = codec.payload_to_dense(payload, n_indiv)    # [snps, indiv]
+    miss = None
+    if keep_missing_info:
+        ms, mi = codec.missing_positions(geno_t)
+        order = np.lexsort((ms, mi))                     # by indiv, then SNP
+        miss = (mi[order], ms[order])
+    if freq is None:
+        freq = codec.allele_freq(geno_t, axis=1)
+    zq_t, zq_n = _pack_pair(geno_t, device)
+    return _container(n_snps, n_indiv, zq_n, zq_t, freq,
+                      codec.allele_freq(geno_t, axis=0), miss, device)
+
+
+def save(path: str, g: GenoMatrix) -> None:
+    """Checkpoint in the reference's ``.npz`` layout."""
+    def host(t, dtype):
+        return t.detach().cpu().numpy().astype(dtype)
+
+    tracked = g.miss_rows_n is not None
+    np.savez_compressed(
+        path, snps=g.snps, indiv=g.indiv, miss_tracked=tracked,
+        zq_n=host(g.zq_n, np.int32).view(np.uint32),
+        zq_t=host(g.zq_t, np.int32).view(np.uint32),
+        freq=host(g.freq, np.float32),
+        pseudo_freq=(host(g.pseudo_freq, np.float32)
+                     if g.pseudo_freq is not None else np.zeros(0, np.float32)),
+        miss_rows=(host(g.miss_rows_n, np.int32) if tracked
+                   else np.zeros(0, np.int32)),
+        miss_cols=(host(g.miss_cols_n, np.int32) if tracked
+                   else np.zeros(0, np.int32)))
+
+
+def load(path: str, device="cpu") -> GenoMatrix:
+    """Inverse of :func:`save`; also reads the reference's checkpoints."""
+    with np.load(path) as z:
+        has_miss = (bool(z["miss_tracked"]) if "miss_tracked" in z.files
+                    else z["miss_rows"].size > 0)
+        has_pf = "pseudo_freq" in z.files and z["pseudo_freq"].size > 0
+        return from_reference_state(dict(
+            snps=z["snps"], indiv=z["indiv"], zq_n=z["zq_n"], zq_t=z["zq_t"],
+            freq=z["freq"],
+            pseudo_freq=z["pseudo_freq"] if has_pf else None,
+            miss_rows_n=z["miss_rows"] if has_miss else None,
+            miss_cols_n=z["miss_cols"] if has_miss else None), device)

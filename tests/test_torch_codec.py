@@ -1,0 +1,169 @@
+"""The port's host layer against miraculix_tpu: codec, .bed I/O, GenoMatrix.
+
+Same panels through both packages must give the same planar16 words (bit
+for bit), the same freq / pseudo_freq, the same missing lists and the same
+simulated draws; checkpoints written by one load in the other.
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import miraculix_tpu as mx  # noqa: E402
+from miraculix_tpu.io import bed as ref_bed  # noqa: E402
+from miraculix_tpu.io import codec as ref_codec  # noqa: E402
+from miraculix_tpu.ops import common as ref_common  # noqa: E402
+
+import miraculix_tpu_torch as mt  # noqa: E402
+from miraculix_tpu_torch.io import bed as pt_bed  # noqa: E402
+from miraculix_tpu_torch.io import codec as pt_codec  # noqa: E402
+from miraculix_tpu_torch.ops import common as pt_common  # noqa: E402
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIELDS = ("zq_n", "zq_t", "freq", "pseudo_freq", "miss_rows_n", "miss_cols_n")
+
+
+def ref_state(gm):
+    """The reference GenoMatrix's fields as numpy arrays."""
+    d = {k: None if getattr(gm, k) is None else np.asarray(getattr(gm, k))
+         for k in FIELDS}
+    return dict(d, snps=gm.snps, indiv=gm.indiv)
+
+
+def assert_same_container(ref, port):
+    assert (port.snps, port.indiv) == (ref.snps, ref.indiv)
+    for k in ("zq_n", "zq_t"):
+        want = np.asarray(getattr(ref, k)).view(np.uint32)
+        got = getattr(port, k).numpy().view(np.uint32)
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(port.freq.numpy(),
+                                  np.asarray(ref.freq, np.float32))
+    np.testing.assert_array_equal(port.pseudo_freq.numpy(),
+                                  np.asarray(ref.pseudo_freq, np.float32))
+    if ref.miss_rows_n is None:
+        assert port.miss_rows_n is None
+    else:
+        np.testing.assert_array_equal(port.miss_rows_n.numpy(),
+                                      np.asarray(ref.miss_rows_n))
+        np.testing.assert_array_equal(port.miss_cols_n.numpy(),
+                                      np.asarray(ref.miss_cols_n))
+
+
+@pytest.mark.parametrize("name", ["golden_panel", "golden_panel_missing"])
+def test_from_bed_matches_reference(name):
+    path = os.path.join(DATA, name + ".bed")
+    assert_same_container(mx.from_bed(path), mt.from_bed(path))
+
+
+@pytest.mark.parametrize("indiv,snps,missing_rate", [
+    (37, 100, 0.0), (300, 1000, 0.0), (61, 2049, 0.05), (256, 33, 0.2)])
+def test_from_dense_matches_reference(indiv, snps, missing_rate):
+    g = ref_bed.simulate_genotypes(indiv, snps, seed=indiv + snps,
+                                   missing_rate=missing_rate)
+    assert_same_container(mx.from_dense(g, keep_missing_info=True),
+                          mt.from_dense(g, keep_missing_info=True))
+    assert_same_container(mx.from_dense(g), mt.from_dense(g))
+
+
+@pytest.mark.parametrize("missing_rate", [0.0, 0.1])
+def test_simulate_and_bed_roundtrip(tmp_path, missing_rate):
+    g = pt_bed.simulate_genotypes(45, 130, seed=5, missing_rate=missing_rate)
+    np.testing.assert_array_equal(
+        g, ref_bed.simulate_genotypes(45, 130, seed=5,
+                                      missing_rate=missing_rate))
+    path = str(tmp_path / "p.bed")
+    pt_bed.write_bed(path, g)
+    geno, freq = ref_bed.read_bed_genotypes(path)
+    np.testing.assert_array_equal(geno, g)
+    pgeno, pfreq = pt_bed.read_bed_genotypes(path)
+    np.testing.assert_array_equal(pgeno, g)
+    np.testing.assert_array_equal(pfreq, freq)
+    plink, n_snps, n_indiv = pt_bed.read_bed(path)
+    rplink, _, _ = ref_bed.read_bed(path)
+    np.testing.assert_array_equal(plink, rplink)
+    assert_same_container(mx.from_plink(rplink, n_snps, n_indiv),
+                          mt.from_plink(plink, n_snps, n_indiv))
+
+
+def test_codec_functions_match_reference():
+    g = ref_bed.simulate_genotypes(29, 77, seed=1, missing_rate=0.1)
+    for axis in (0, 1):
+        np.testing.assert_array_equal(pt_codec.allele_freq(g, axis),
+                                      ref_codec.allele_freq(g, axis))
+    for a, b in zip(pt_codec.missing_positions(g),
+                    ref_codec.missing_positions(g)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(pt_codec.dense_to_plink(g),
+                                  ref_codec.dense_to_plink(g))
+    plink = ref_codec.dense_to_plink(g)
+    np.testing.assert_array_equal(pt_codec.plink_to_dense(plink, 29), g)
+    for zero_missing in (True, False):
+        w = pt_codec.pack_planar16(g, zero_missing=zero_missing)
+        np.testing.assert_array_equal(
+            w, ref_codec.pack_planar16(g, zero_missing=zero_missing))
+        np.testing.assert_array_equal(
+            pt_codec.unpack_planar16(w, 29, 77),
+            ref_codec.unpack_planar16(w, 29, 77))
+    np.testing.assert_array_equal(
+        pt_codec.pack_planar16_t(g, row_mult=256),
+        ref_codec.pack_planar16(np.ascontiguousarray(g.T), row_mult=256).T)
+    assert pt_codec.planar16_dims(29, 77, row_mult=256) == \
+        ref_codec.planar16_dims(29, 77, row_mult=256)
+
+
+def test_common_helpers_match_reference():
+    gm = mx.from_dense(ref_bed.simulate_genotypes(50, 700, seed=2))
+    zq = np.array(gm.zq_n)
+    zt = torch.from_numpy(zq.view(np.int32))
+    np.testing.assert_array_equal(
+        pt_common.packed_row_sq_stats(zt).numpy(),
+        np.asarray(ref_common.packed_row_sq_stats(gm.zq_n)))
+    np.testing.assert_array_equal(
+        pt_common.packed_indicator2(zt).numpy().view(np.uint32),
+        np.asarray(ref_common.packed_indicator2(gm.zq_n)).view(np.uint32))
+    np.testing.assert_array_equal(
+        pt_common.decode_planar16(zt, torch.int32).numpy(),
+        ref_codec.unpack_planar16(zq, zq.shape[0], 16 * zq.shape[1]))
+
+
+@pytest.mark.parametrize("tracked", [False, True])
+def test_checkpoints_cross_load(tmp_path, tracked):
+    g = ref_bed.simulate_genotypes(40, 300, seed=4, missing_rate=0.05)
+    ref = mx.from_dense(g, keep_missing_info=tracked)
+    p_ref = str(tmp_path / "ref.npz")
+    mx.save(p_ref, ref)
+    assert_same_container(ref, mt.load(p_ref))
+    p_port = str(tmp_path / "port.npz")
+    mt.save(p_port, mt.from_dense(g, keep_missing_info=tracked))
+    assert_same_container(mx.load(p_port), mt.load(p_port))
+    assert_same_container(ref, mt.from_reference_state(ref_state(ref)))
+
+
+def test_freq_cache_family_matches_reference():
+    g = ref_bed.simulate_genotypes(90, 500, seed=6)
+    ref, port = mx.from_dense(g), mt.from_dense(g)
+    for name in ("snp_sums", "indiv_sums", "freq_sxi", "pseudo_freq_sxi",
+                 "total_sum"):
+        want = np.asarray(getattr(ref, name)(), np.float64)
+        got = getattr(port, name)().numpy().astype(np.float64)
+        np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=name)
+    for name in ("sigma2", "pseudo_sigma2"):
+        np.testing.assert_allclose(float(getattr(port, name)),
+                                   float(getattr(ref, name)), rtol=1e-6)
+
+
+def test_port_imports_without_jax():
+    code = ("import sys, miraculix_tpu_torch, miraculix_tpu_torch.gblup, "
+            "miraculix_tpu_torch.io.bed, miraculix_tpu_torch._kernels; "
+            "bad = [m for m in sys.modules "
+            "if m in ('jax', 'miraculix_tpu') "
+            "or m.startswith(('jax.', 'miraculix_tpu.'))]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=REPO, timeout=120)

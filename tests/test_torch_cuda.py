@@ -1,0 +1,66 @@
+"""The port's CUDA kernels against their plain torch versions, on the GPU.
+
+Marked ``cuda``: every test skips where no CUDA device is present.  Run on a
+GPU host with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
+(``--noconftest`` because the suite's conftest configures jax, which the
+port does not need).  Shapes here are deliberately ragged: row counts off
+the 64-row tile, word counts off the 16/32-word steps, odd RHS widths.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from miraculix_tpu_torch.ops.dgemm import (  # noqa: E402
+    packed_matmul_tall, packed_matmul_tall_plain)
+from miraculix_tpu_torch.ops.grm import (  # noqa: E402
+    packed_crossprod, packed_crossprod_plain)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _words(rng, rows, kw):
+    w = rng.integers(0, 2 ** 32, size=(rows, kw), dtype=np.uint64)
+    # genotype fields hold 0/1/2 only: clear the high bit of every 11 field
+    w = w.astype(np.uint32)
+    both = (w & (w >> np.uint32(1))) & np.uint32(0x55555555)
+    w &= ~(both << np.uint32(1))
+    return torch.from_numpy(w.view(np.int32))
+
+
+@pytest.mark.parametrize("spad,kwi,contract,n", [
+    (256, 128, 256, 1), (300, 37, 290, 3), (1000, 64, 999, 12),
+    (4096, 96, 4000, 33), (700, 160, 700, 64), (64, 5, 1, 7)])
+@pytest.mark.parametrize("with_cv", [False, True])
+def test_tall_dgemm_matches_plain(dev, spad, kwi, contract, n, with_cv):
+    rng = np.random.default_rng(spad + kwi + n)
+    zq = _words(rng, spad, kwi).to(dev)
+    b = torch.as_tensor(rng.standard_normal((contract, n)),
+                        dtype=torch.float32, device=dev)
+    cv = torch.as_tensor(rng.standard_normal(contract), dtype=torch.float32,
+                         device=dev) if with_cv else None
+    got = packed_matmul_tall(zq, b, center_vec=cv)
+    want = packed_matmul_tall_plain(zq, b, center_vec=cv)
+    # error bound relative to the sums of |terms|: a sum that cancels (a
+    # one-column v of mixed-sign cv) is no more accurate than its terms
+    scale = packed_matmul_tall_plain(zq, b.abs(), center_vec=None if cv is None
+                                     else cv.abs())
+    if cv is None:
+        got, want, scale = (got,), (want,), (scale,)
+    for x, y, s in zip(got, want, scale):
+        assert x.shape == y.shape
+        assert float((x - y).abs().max()) <= 1e-5 * float(s.max())
+
+
+@pytest.mark.parametrize("rows,kw", [(64, 16), (65, 17), (200, 33),
+                                     (513, 128), (1, 1)])
+def test_crossprod_matches_plain(dev, rows, kw):
+    zq = _words(np.random.default_rng(rows * kw), rows, kw).to(dev)
+    assert torch.equal(packed_crossprod(zq), packed_crossprod_plain(zq))
