@@ -1,8 +1,8 @@
-// Skinny packed product for RHS of at most 64 columns (the "tall" schedule).
+// Skinny packed product for narrow RHS (the "tall" schedule).
 //
-// Replaces miraculix_tpu/ops/dgemm.py:_pmm_tall_kernel (split mode, with
-// _tall_split_rows) and, when a center vector is given,
-// miraculix_tpu/ops/dgemm.py:_pmm_tall_kernel_cv.
+// Replaces miraculix_tpu/ops/dgemm.py:_pmm_tall_kernel in its three modes
+// (split, with _tall_split_rows; bf16; f32) and, when a center vector is
+// given, miraculix_tpu/ops/dgemm.py:_pmm_tall_kernel_cv.
 //
 // Computes, for zq_other int32 [spad, kwi] (planar16 over the output axis,
 // packed rows = contraction axis) and B f32 [contract, n]:
@@ -14,6 +14,11 @@
 // ct[j, r] (the wrapper returns the [16*kwi, n] view).  Products are exact
 // f32 (genotypes are 0/1/2) accumulated with f32 FMA: the same function as
 // the TPU kernel at better precision than its bf16 hi/lo split (~3e-6).
+// The split and f32 modes share this arithmetic; the bf16 mode rounds each
+// B value once to bf16 (nearest even) as it is staged, as the TPU kernel's
+// single bf16 pass does.  dgemm routes RHS of up to 64 columns here at the
+// fast tier and up to 128 at the bf16 and f32 tiers; wider RHS run as
+// column chunks of at most 64 over gridDim.z.
 //
 // Bound on H100: the FMA pipe.  Every packed word read feeds 16*n FMAs and
 // 16 decodes, so at n >= 4 the CUDA cores, not HBM, set the time.  Design:
@@ -37,19 +42,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode.cuh"
+
 namespace {
 
-constexpr int WORDS = 32;   // packed words (output word columns) per block
-constexpr int S_TILE = 64;  // contraction rows staged per step
-constexpr int MAX_N = 64;   // widest RHS this schedule takes
+constexpr int WORDS = 32;      // packed words (output word columns) per block
+constexpr int S_TILE = 64;     // contraction rows staged per step
+constexpr int MAX_CHUNK = 64;  // widest column chunk of one block
 
-__device__ __forceinline__ float geno(uint32_t w, int m) {
-  // (w >> 2m) & 3 as an exact float: 2^23 + g has the bit pattern
-  // 0x4B000000 | g, so subtracting 2^23 leaves g
-  return __int_as_float(((w >> (2 * m)) & 3u) | 0x4B000000u) - 8388608.0f;
+using mx::geno;
+
+// column chunks of an n-column RHS and their (equal) width
+__host__ __device__ inline int tall_chunks(int n) {
+  return (n + MAX_CHUNK - 1) / MAX_CHUNK;
+}
+__host__ __device__ inline int chunk_width(int n) {
+  return (n + tall_chunks(n) - 1) / tall_chunks(n);
 }
 
-template <int JT>
+template <int JT, int RHS>
 __global__ void __launch_bounds__(256)
 tall_kernel(const uint32_t* __restrict__ zq, int kwi,
             const float* __restrict__ b, long long contract, int n,
@@ -69,6 +80,8 @@ tall_kernel(const uint32_t* __restrict__ zq, int kwi,
   const long long s_begin = (long long)split * rows_per_split;
   const long long s_end = min(contract, s_begin + rows_per_split);
   const int j0 = grp * JT;
+  const int c0 = blockIdx.z * chunk_width(n);          // this chunk's columns
+  const int ncols = min(chunk_width(n), n - c0);
   const bool do_v = cv != nullptr && blockIdx.x == 0;
 
   float acc[16][JT];
@@ -82,7 +95,8 @@ tall_kernel(const uint32_t* __restrict__ zq, int kwi,
     const int rows = (int)min((long long)S_TILE, s_end - s0);
     for (int i = tid; i < S_TILE * width; i += nthreads) {
       const int r = i / width, j = i % width;
-      bs[i] = (r < rows && j < n) ? b[(s0 + r) * n + j] : 0.f;
+      bs[i] = (r < rows && j < ncols)
+                  ? mx::rhs_value<RHS>(b[(s0 + r) * n + c0 + j]) : 0.f;
     }
 #pragma unroll 8
     for (int r = grp; r < rows; r += blockDim.y)
@@ -106,7 +120,7 @@ tall_kernel(const uint32_t* __restrict__ zq, int kwi,
         }
       }
     }
-    if (do_v && tid < n)
+    if (do_v && tid < ncols)
       for (int r = 0; r < rows; ++r) vacc = fmaf(cvs[r], bs[r * width + tid], vacc);
     __syncthreads();
   }
@@ -117,13 +131,14 @@ tall_kernel(const uint32_t* __restrict__ zq, int kwi,
 #pragma unroll
     for (int t = 0; t < JT; ++t) {
       const int j = j0 + t;
-      if (j < n) {
+      if (j < ncols) {
 #pragma unroll
-        for (int m = 0; m < 16; ++m) dst[j * out_rows + m * kwi + w] = acc[m][t];
+        for (int m = 0; m < 16; ++m)
+          dst[(c0 + j) * out_rows + m * kwi + w] = acc[m][t];
       }
     }
   }
-  if (do_v && tid < n) vpart[split * n + tid] = vacc;
+  if (do_v && tid < ncols) vpart[split * n + c0 + tid] = vacc;
 }
 
 // out[i] = sum over splits of part[s][i], in split order; the first n
@@ -145,36 +160,55 @@ __global__ void reduce_splits(const float* __restrict__ part, int splits,
   }
 }
 
-template <int JT>
+template <int JT, int RHS>
 void launch_tall(const uint32_t* zq, int kwi, const float* b,
                  long long contract, int n, const float* cv, long long rps,
                  int splits, float* part, float* vpart, cudaStream_t st) {
-  dim3 block(WORDS, (n + JT - 1) / JT);
-  dim3 grid((kwi + WORDS - 1) / WORDS, splits);
+  dim3 block(WORDS, (chunk_width(n) + JT - 1) / JT);
+  dim3 grid((kwi + WORDS - 1) / WORDS, splits, tall_chunks(n));
   const size_t smem =
       sizeof(float) * (S_TILE * block.y * JT + S_TILE * WORDS + S_TILE);
-  tall_kernel<JT><<<grid, block, smem, st>>>(zq, kwi, b, contract, n, cv, rps,
-                                             part, vpart);
+  tall_kernel<JT, RHS><<<grid, block, smem, st>>>(zq, kwi, b, contract, n, cv,
+                                                  rps, part, vpart);
+}
+
+// JT (RHS columns per warp) for a column chunk of width cw.
+// Measured on H100: 4 columns (126 registers) beats 8 (202 registers, half
+// the resident warps) up to n = 32; n > 32 needs 8 to stay within 8 warps.
+int cols_per_warp(int cw) {
+  return cw <= 1 ? 1 : cw <= 2 ? 2 : cw <= 32 ? 4 : 8;
+}
+
+template <int RHS>
+void launch_rhs(const uint32_t* z, int kwi, const float* bf, long long contract,
+                int n, const float* c, long long rps, int splits, float* part,
+                float* vpart, cudaStream_t st) {
+  switch (cols_per_warp(chunk_width(n))) {
+    case 1: launch_tall<1, RHS>(z, kwi, bf, contract, n, c, rps, splits, part, vpart, st); break;
+    case 2: launch_tall<2, RHS>(z, kwi, bf, contract, n, c, rps, splits, part, vpart, st); break;
+    case 4: launch_tall<4, RHS>(z, kwi, bf, contract, n, c, rps, splits, part, vpart, st); break;
+    default: launch_tall<8, RHS>(z, kwi, bf, contract, n, c, rps, splits, part, vpart, st); break;
+  }
 }
 
 }  // namespace
 
-// JT (RHS columns per warp) for an n-column RHS; the wrapper sizes its
-// split workspace with the same rule.
-// Measured on H100: 4 columns (126 registers) beats 8 (202 registers, half
-// the resident warps) up to n = 32; n > 32 needs 8 to stay within 8 warps.
-extern "C" int mx_tall_cols_per_warp(int n) {
-  return n <= 1 ? 1 : n <= 2 ? 2 : n <= 32 ? 4 : 8;
+// Warps launched per 32-word tile for an n-column RHS; the wrapper sizes
+// its split count with the same rule.
+extern "C" int mx_tall_warps_per_tile(int n) {
+  const int jt = cols_per_warp(chunk_width(n));
+  return tall_chunks(n) * ((chunk_width(n) + jt - 1) / jt);
 }
 
-// ct: f32 [n, 16*kwi]; vout: f32 [n] (only with cv).  With splits > 1,
+// ct: f32 [n, 16*kwi]; vout: f32 [n] (only with cv).  rhs: 0 = B as
+// given (split and f32 modes), 1 = bf16(B) (bf16 mode).  With splits > 1,
 // work: f32 [splits, n, 16*kwi] and vwork: f32 [splits, n] hold the split
 // partials.  Returns the cudaError_t of the launches.
 extern "C" int mx_tall_dgemm(const void* zq, int kwi, const void* b,
                              long long contract, int n, const void* cv,
                              void* ct, void* vout, void* work, void* vwork,
-                             int splits, void* stream) {
-  if (n < 1 || n > MAX_N || kwi < 1 || splits < 1 || contract < 0)
+                             int splits, int rhs, void* stream) {
+  if (n < 1 || kwi < 1 || splits < 1 || contract < 0 || rhs < 0 || rhs > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const long long rps = (contract + splits - 1) / splits;
@@ -184,12 +218,10 @@ extern "C" int mx_tall_dgemm(const void* zq, int kwi, const void* b,
   const auto* z = (const uint32_t*)zq;
   const auto* bf = (const float*)b;
   const auto* c = (const float*)cv;
-  switch (mx_tall_cols_per_warp(n)) {
-    case 1: launch_tall<1>(z, kwi, bf, contract, n, c, rps, splits, part, vpart, st); break;
-    case 2: launch_tall<2>(z, kwi, bf, contract, n, c, rps, splits, part, vpart, st); break;
-    case 4: launch_tall<4>(z, kwi, bf, contract, n, c, rps, splits, part, vpart, st); break;
-    default: launch_tall<8>(z, kwi, bf, contract, n, c, rps, splits, part, vpart, st); break;
-  }
+  if (rhs == 0)
+    launch_rhs<mx::RHS_F32>(z, kwi, bf, contract, n, c, rps, splits, part, vpart, st);
+  else
+    launch_rhs<mx::RHS_BF16>(z, kwi, bf, contract, n, c, rps, splits, part, vpart, st);
   if (splits > 1) {
     const long long len = 16LL * kwi * n;
     const int threads = 256;

@@ -6,6 +6,8 @@ per-SNP and per-individual allele frequencies and, optionally, the missing
 coordinates.  ``save``/``load`` use the reference's ``.npz`` layout, and
 :func:`from_reference_state` takes the reference container's fields as numpy
 arrays, so a panel packed by either package is used by the other unchanged.
+The constructors put the panel on the CUDA card unless ``device`` names
+another device.
 """
 from __future__ import annotations
 
@@ -107,9 +109,21 @@ class GenoMatrix:
                 f"packed={self.nbytes / 1e6:.1f} MB, device={self.device})")
 
 
+def _device(device) -> torch.device:
+    """``device``, or the CUDA card when it is None (never the CPU unasked)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the panel goes to the card unless "
+                           "a device is given (device='cpu' for the CPU)")
+    return torch.device("cuda")
+
+
 def _container(snps, indiv, zq_n, zq_t, freq, pseudo_freq=None,
-               miss=None, device="cpu") -> GenoMatrix:
+               miss=None, device=None) -> GenoMatrix:
     """GenoMatrix on ``device`` from word tensors and numpy statistics."""
+    device = _device(device)
+
     def vec(a, dtype):
         return None if a is None else torch.tensor(
             np.asarray(a, dtype), device=device)
@@ -122,7 +136,7 @@ def _container(snps, indiv, zq_n, zq_t, freq, pseudo_freq=None,
         miss_rows_n=vec(mr, np.int64), miss_cols_n=vec(mc, np.int64))
 
 
-def from_reference_state(d: dict, device="cpu") -> GenoMatrix:
+def from_reference_state(d: dict, device=None) -> GenoMatrix:
     """Build from the reference GenoMatrix's fields given as numpy arrays
     (keys ``snps``, ``indiv``, ``zq_n``, ``zq_t``, ``freq`` and optionally
     ``pseudo_freq``, ``miss_rows_n``, ``miss_cols_n``; None means absent)."""
@@ -144,8 +158,9 @@ def _pack_pair(geno: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def from_dense(geno: np.ndarray, freq: Optional[np.ndarray] = None,
-               keep_missing_info: bool = False, device="cpu") -> GenoMatrix:
+               keep_missing_info: bool = False, device=None) -> GenoMatrix:
     """Pack a dense genotype matrix [indiv, snps] (0/1/2, 3 = missing)."""
+    device = _device(device)
     geno = np.asarray(geno, dtype=np.uint8)
     miss = codec.missing_positions(geno) if keep_missing_info else None
     if freq is None:
@@ -165,10 +180,11 @@ def from_plink(plink: np.ndarray, snps: int, indiv: int,
 
 
 def from_bed(path: str, freq: Optional[np.ndarray] = None,
-             keep_missing_info: bool = False, device="cpu") -> GenoMatrix:
+             keep_missing_info: bool = False, device=None) -> GenoMatrix:
     """Build from a PLINK .bed fileset.  The SNP-major payload decodes
     straight into the [snps, indiv] orientation; no genotypes are
     transposed."""
+    device = _device(device)
     payload, n_snps, n_indiv = bed.read_bed_payload(path)
     geno_t = codec.payload_to_dense(payload, n_indiv)    # [snps, indiv]
     miss = None
@@ -181,6 +197,67 @@ def from_bed(path: str, freq: Optional[np.ndarray] = None,
     zq_t, zq_n = _pack_pair(geno_t, device)
     return _container(n_snps, n_indiv, zq_n, zq_t, freq,
                       codec.allele_freq(geno_t, axis=0), miss, device)
+
+
+def subset_snps(g: GenoMatrix, idx, freq: Optional[np.ndarray] = None
+                ) -> GenoMatrix:
+    """SNP-subset GenoMatrix built on the panel's device from the packed
+    words, with no dense intermediate; the words equal the reference's bit
+    for bit.
+
+    - ``zq_t``: rows are SNPs, so the subset's packing is one row gather,
+      with the padding rows zeroed.
+    - ``zq_n``: SNP s lives in word column s % kw at bits 2*(s // kw), so
+      each subset SNP's 2-bit field is one column gather and shift; the 16
+      planes of the fresh planar16 layout are OR-ed together (an int32 sum
+      would overflow at plane 15).
+
+    ``freq`` defaults to the parent panel's frequencies at ``idx``;
+    pseudo-frequencies depend on the subset and are dropped.  Missing
+    coordinates are restricted to ``idx`` and remapped (a repeated index
+    keeps only its last occurrence's coordinates).
+    """
+    idx = np.asarray(idx, np.int64)
+    if idx.ndim != 1 or (idx.size and (idx.min() < 0 or
+                                       idx.max() >= g.snps)):
+        raise ValueError("idx must be 1-D SNP indices within the panel")
+    m = int(idx.size)
+    if m == 0:
+        raise ValueError("empty SNP subset")
+    dev = g.device
+    ipad, kw = g.zq_n.shape
+
+    spd_new = codec.round_up(m, ROW_MULT)
+    idx_pad = np.zeros(spd_new, np.int64)
+    idx_pad[:m] = idx
+    zq_t = g.zq_t[torch.from_numpy(idx_pad).to(dev)]
+    zq_t[m:] = 0
+
+    kw2 = codec.round_up(-(-m // 16), codec.LANE)
+    sidx = np.zeros(16 * kw2, np.int64)
+    sidx[:m] = idx
+    src_col = torch.from_numpy(sidx % kw).to(dev)
+    src_shift = torch.from_numpy((2 * (sidx // kw)).astype(np.int32)).to(dev)
+    fields = (g.zq_n[:, src_col] >> src_shift) & 3
+    fields[:, m:] = 0
+    fields = fields.reshape(ipad, 16, kw2)
+    zq_n = fields[:, 0].clone()
+    for p in range(1, 16):
+        zq_n |= fields[:, p] << (2 * p)
+
+    fsub = (g.freq[torch.from_numpy(idx).to(dev)] if freq is None
+            else torch.as_tensor(np.asarray(freq, np.float32), device=dev))
+    mr = mc = None
+    if g.miss_rows_n is not None:
+        mrows = g.miss_rows_n.cpu().numpy()
+        mcols = g.miss_cols_n.cpu().numpy()
+        newpos = np.full(g.snps, -1, np.int64)
+        newpos[idx] = np.arange(m)
+        sel = newpos[mcols] >= 0
+        mr = torch.from_numpy(mrows[sel]).to(dev)
+        mc = torch.from_numpy(newpos[mcols[sel]]).to(dev)
+    return GenoMatrix(snps=m, indiv=g.indiv, zq_n=zq_n, zq_t=zq_t, freq=fsub,
+                      miss_rows_n=mr, miss_cols_n=mc)
 
 
 def save(path: str, g: GenoMatrix) -> None:
@@ -202,7 +279,7 @@ def save(path: str, g: GenoMatrix) -> None:
                    else np.zeros(0, np.int32)))
 
 
-def load(path: str, device="cpu") -> GenoMatrix:
+def load(path: str, device=None) -> GenoMatrix:
     """Inverse of :func:`save`; also reads the reference's checkpoints."""
     with np.load(path) as z:
         has_miss = (bool(z["miss_tracked"]) if "miss_tracked" in z.files

@@ -1,15 +1,17 @@
 """dgemm_compressed: genotype matrix x dense matrix, straight off packed bits.
 
-Torch twin of ``miraculix_tpu.ops.dgemm`` at ``precision="fast"`` for RHS of
-at most 64 columns.  For genotype matrix Z (indiv, snps) and frequencies f:
+Torch twin of ``miraculix_tpu.ops.dgemm`` at the ``fast``, ``bf16`` and
+``f32`` tiers.  For genotype matrix Z (indiv, snps) and frequencies f:
 
     trans='n':  C[indiv, n] = (Z - M) @ B,   B: [snps, n]
     trans='t':  C[snps,  n] = (Z - M)^T @ B, B: [indiv, n]
 
-The packed product runs in :func:`packed_matmul_tall` (kernels K1/K2 of
-``csrc/tall_dgemm.cu`` on CUDA tensors); centering is a rank-1 epilogue whose
-contraction-side reduction (c^T B or 1^T B) the kernel fuses whenever
-centering applies.
+The packed product runs on one of two schedules, chosen as the reference
+chooses: :func:`packed_matmul_tall` (``csrc/tall_dgemm.cu``) for RHS of up
+to 64 columns at the fast tier and 128 at the bf16/f32 tiers, and
+:func:`packed_matmul` (``csrc/wide_dgemm.cu``) for wider RHS.  Centering is
+a rank-1 epilogue whose contraction-side reduction (c^T B or 1^T B) the
+tall kernel fuses at the fast tier.
 """
 from __future__ import annotations
 
@@ -19,39 +21,110 @@ from .. import _kernels
 from ..geno import GenoMatrix
 from .common import decode_planar16
 
-TALL_LIMIT = 64  # widest RHS of the tall schedule (the reference's fast tier)
+TALL_LIMITS = {"fast": 64, "bf16": 128, "f32": 128}  # widest tall RHS per tier
+TALL_MODES = {"fast": "split", "bf16": "bf16", "f32": "f32"}
+WIDE_CHUNK = 512  # packed_matmul runs wider RHS in column chunks of this
+
+
+def rhs_values(b: torch.Tensor, rhs: str) -> torch.Tensor:
+    """The f32 RHS values a kernel instance multiplies by: B itself
+    ("split", "f32"), bf16(B) rounded to nearest even ("bf16"), or the sum
+    of B's bf16 hi and lo halves ("hilo"; exact in f32)."""
+    if rhs in ("split", "f32"):
+        return b
+    hi = b.to(torch.bfloat16).to(torch.float32)
+    if rhs == "bf16":
+        return hi
+    return hi + (b - hi).to(torch.bfloat16).to(torch.float32)
 
 
 def packed_matmul_tall_plain(zq_other: torch.Tensor, b: torch.Tensor,
-                             center_vec=None):
+                             center_vec=None, mode: str = "split"):
     """Plain version of :func:`packed_matmul_tall`: decode densely in f32
     and multiply."""
     contract = b.shape[0]
     d = decode_planar16(zq_other[:contract], torch.float32)
-    c = d.T @ b
+    c = d.T @ rhs_values(b, mode)
     if center_vec is None:
         return c
     return c, center_vec @ b
 
 
 def packed_matmul_tall(zq_other: torch.Tensor, b: torch.Tensor,
-                       center_vec=None):
+                       center_vec=None, mode: str = "split"):
     """decode(zq_other)^T @ B -> f32 [16*kw, n], plus v = center_vec^T B [n]
-    when ``center_vec`` [contract] is given.
+    when ``center_vec`` [contract] is given (split mode only).
 
     ``zq_other`` is the packing of the OTHER orientation: its packed rows are
     the contraction axis and its decoded columns the output rows (pass zq_t
     for Z @ B, zq_n for Z^T @ B).  ``b``: [contract, n], contract <= packed
-    rows, n <= 64.  Output rows past the real count are zero.  CUDA tensors
-    launch K1 (K2 with ``center_vec``); CPU tensors take the plain version.
+    rows.  ``mode``: "split" (the fast tier) or "f32" multiply by B in f32,
+    "bf16" by bf16(B).  Output rows past the real count are zero.  CUDA
+    tensors launch the tall kernel; CPU tensors take the plain version.
     """
+    if mode not in TALL_MODES.values():
+        raise ValueError(f"mode must be split/bf16/f32, got {mode!r}")
+    if center_vec is not None and mode != "split":
+        raise ValueError("center_vec fusion is a split-mode feature")
     b = b.to(torch.float32)
     cv = None if center_vec is None else center_vec.to(torch.float32)
     if not zq_other.is_cuda:
-        return packed_matmul_tall_plain(zq_other, b, cv)
+        return packed_matmul_tall_plain(zq_other, b, cv, mode)
     ct, v = _kernels.tall_dgemm(zq_other.contiguous(), b.contiguous(),
-                                None if cv is None else cv.contiguous())
+                                None if cv is None else cv.contiguous(), mode)
     return ct.T if cv is None else (ct.T, v)
+
+
+def _wide_chunks(b: torch.Tensor, split: bool, single_bf16: bool):
+    """(column slice, kernel instance) per WIDE_CHUNK columns of B, as the
+    reference chunks: ``single_bf16`` -> "bf16"; ``split`` -> "split" above
+    64 columns (its in-kernel split), "hilo" at 64 or fewer (its host hi||lo
+    concatenation); otherwise "f32"."""
+    for j in range(0, b.shape[1], WIDE_CHUNK):
+        bj = b[:, j:j + WIDE_CHUNK]
+        rhs = ("bf16" if single_bf16 else
+               ("split" if bj.shape[1] > 64 else "hilo") if split else "f32")
+        yield bj, rhs
+
+
+def _cat(parts: list) -> torch.Tensor:
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def packed_matmul_plain(zq: torch.Tensor, b: torch.Tensor, *,
+                        split: bool = True, single_bf16: bool = False,
+                        per_plane: bool = True) -> torch.Tensor:
+    """Plain version of :func:`packed_matmul`: decode densely in f32 and
+    multiply by each chunk's RHS values."""
+    b = b.to(torch.float32)
+    d = decode_planar16(zq, torch.float32)[:, :b.shape[0]]
+    return _cat([d @ rhs_values(bj, rhs)
+                 for bj, rhs in _wide_chunks(b, split, single_bf16)])
+
+
+def packed_matmul(zq: torch.Tensor, b, *, split: bool = True,
+                  single_bf16: bool = False,
+                  per_plane: bool = True) -> torch.Tensor:
+    """Raw product decode(zq) @ B_padded -> f32 [rows_pad, n].
+
+    ``zq``: int32 planar16 [rows_pad, kw]; ``b``: [cols, n] with
+    cols <= 16*kw (rows past ``cols`` count as zero).  No centering.
+    ``single_bf16`` overrides ``split``: B rounded once to bf16 (~2e-3
+    relative, the speed tier); ``split=False`` multiplies by B in f32.
+    ``per_plane`` selects a TPU scheduling variant of the same function and
+    changes nothing here.  CUDA tensors launch the wide kernel; CPU tensors
+    take the plain version.
+    """
+    b = torch.as_tensor(b, dtype=torch.float32, device=zq.device)
+    if b.dim() != 2 or b.shape[0] > 16 * zq.shape[1]:
+        raise ValueError(f"B {tuple(b.shape)} does not fit packed words "
+                         f"{tuple(zq.shape)}")
+    if not zq.is_cuda:
+        return packed_matmul_plain(zq, b, split=split,
+                                   single_bf16=single_bf16)
+    zq = zq.contiguous()
+    return _cat([_kernels.wide_dgemm(zq, bj.contiguous(), rhs)
+                 for bj, rhs in _wide_chunks(b, split, single_bf16)])
 
 
 def _resolve_center(center, device) -> tuple:
@@ -83,7 +156,8 @@ def dgemm(g: GenoMatrix, b, trans: str = "n", center=True,
     by sqrt(2 sum p(1-p)) over SNP frequencies for 't' and over
     per-individual pseudo-frequencies for 'n'.  ``ignore_missings=False``
     makes recorded missing entries contribute 0 to the centered product.
-    Returns f32 [rows, n] on the panel's device.
+    ``precision``: "fast" (f32 products), "bf16" (B rounded once to bf16,
+    ~2e-3 relative) or "f32".  Returns f32 [rows, n] on the panel's device.
     """
     trans = trans.lower()
     if trans not in ("n", "t"):
@@ -91,42 +165,46 @@ def dgemm(g: GenoMatrix, b, trans: str = "n", center=True,
     if precision not in ("bf16", "fast", "f32", "f64"):
         raise ValueError(f"precision must be one of bf16/fast/f32/f64, "
                          f"got {precision!r}")
-    if precision != "fast":
+    if precision == "f64":
         raise NotImplementedError(
-            f"precision={precision!r} is not ported yet (ROADMAP queue B: B1 "
-            "bf16/f32 modes and B5 for bf16/f32, B10 and A10 for f64)")
+            "precision='f64' is not ported yet (ROADMAP B10 and A10)")
     dev = g.device
     b = torch.as_tensor(b, dtype=torch.float32, device=dev)
     if b.dim() == 1:
         b = b[:, None]
-    if b.shape[1] > TALL_LIMIT:
-        raise NotImplementedError(
-            f"RHS of {b.shape[1]} columns: the wide schedule (> {TALL_LIMIT}) "
-            "is not ported yet (ROADMAP queue B: B3/B4)")
     mode, user_vec = _resolve_center(center, dev)
     if trans == "n":
-        zq_other, rows, cols = g.zq_t, g.indiv, g.snps
+        zq, zq_other, rows, cols = g.zq_n, g.zq_t, g.indiv, g.snps
     else:
-        zq_other, rows, cols = g.zq_n, g.snps, g.indiv
+        zq, zq_other, rows, cols = g.zq_t, g.zq_n, g.snps, g.indiv
     if b.shape[0] != cols:
         raise ValueError(
             f"B has {b.shape[0]} rows, expected {cols} for trans='{trans}'")
     if mode == "colmeans" and g.pseudo_freq is None:
         raise ValueError("colmeans centering needs pseudo_freq")
 
-    if mode == "none":
-        c = packed_matmul_tall(zq_other, b)[:rows]
-    else:
+    tall = (b.shape[1] <= TALL_LIMITS[precision]
+            and b.shape[0] <= zq_other.shape[0])
+    if mode != "none":
         # per-row: the center varies along the contraction axis (the
-        # kernel reduces c^T B); otherwise along the output axis (1^T B)
+        # epilogue needs c^T B); otherwise along the output axis (1^T B)
         per_row = (mode in ("rowmeans", "user")) if trans == "n" \
             else mode == "colmeans"
         ovec = (2.0 * g.freq if mode == "rowmeans"
                 else 2.0 * g.pseudo_freq if mode == "colmeans" else user_vec)
         cv = ovec if per_row else torch.ones(cols, dtype=torch.float32,
                                              device=dev)
+    if tall and precision == "fast" and mode != "none":
         c, v = packed_matmul_tall(zq_other, b, center_vec=cv)
-        c = c[:rows]
+    else:
+        if tall:
+            c = packed_matmul_tall(zq_other, b, mode=TALL_MODES[precision])
+        else:
+            c = packed_matmul(zq, b, split=precision == "fast",
+                              single_bf16=precision == "bf16")
+        v = None if mode == "none" else cv @ b
+    c = c[:rows]
+    if mode != "none":
         c = c - v[None, :] if per_row else c - ovec[:rows, None] * v[None, :]
         if not ignore_missings and g.miss_rows_n is not None:
             c = _missing_correction(g, b, c, trans, mode, user_vec)

@@ -15,6 +15,8 @@ from miraculix_tpu.io import bed  # noqa: E402
 
 import miraculix_tpu_torch as mt  # noqa: E402
 
+CPU = "cpu"  # the port's panels are built on the CPU in these tests
+
 
 def _rel(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
@@ -25,7 +27,7 @@ def _rel(got, want):
 @pytest.fixture(scope="module")
 def panel():
     g = bed.simulate_genotypes(96, 600, seed=12)
-    return g, mx.from_dense(g), mt.from_dense(g)
+    return g, mx.from_dense(g), mt.from_dense(g, device=CPU)
 
 
 @pytest.mark.parametrize("center,scale", [(True, False), (True, True),

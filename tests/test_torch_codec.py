@@ -23,6 +23,8 @@ from miraculix_tpu_torch.io import bed as pt_bed  # noqa: E402
 from miraculix_tpu_torch.io import codec as pt_codec  # noqa: E402
 from miraculix_tpu_torch.ops import common as pt_common  # noqa: E402
 
+CPU = "cpu"  # the port's panels are built on the CPU in these tests
+
 DATA = os.path.join(os.path.dirname(__file__), "data")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = ("zq_n", "zq_t", "freq", "pseudo_freq", "miss_rows_n", "miss_cols_n")
@@ -57,7 +59,7 @@ def assert_same_container(ref, port):
 @pytest.mark.parametrize("name", ["golden_panel", "golden_panel_missing"])
 def test_from_bed_matches_reference(name):
     path = os.path.join(DATA, name + ".bed")
-    assert_same_container(mx.from_bed(path), mt.from_bed(path))
+    assert_same_container(mx.from_bed(path), mt.from_bed(path, device=CPU))
 
 
 @pytest.mark.parametrize("indiv,snps,missing_rate", [
@@ -66,8 +68,8 @@ def test_from_dense_matches_reference(indiv, snps, missing_rate):
     g = ref_bed.simulate_genotypes(indiv, snps, seed=indiv + snps,
                                    missing_rate=missing_rate)
     assert_same_container(mx.from_dense(g, keep_missing_info=True),
-                          mt.from_dense(g, keep_missing_info=True))
-    assert_same_container(mx.from_dense(g), mt.from_dense(g))
+                          mt.from_dense(g, keep_missing_info=True, device=CPU))
+    assert_same_container(mx.from_dense(g), mt.from_dense(g, device=CPU))
 
 
 @pytest.mark.parametrize("missing_rate", [0.0, 0.1])
@@ -87,7 +89,7 @@ def test_simulate_and_bed_roundtrip(tmp_path, missing_rate):
     rplink, _, _ = ref_bed.read_bed(path)
     np.testing.assert_array_equal(plink, rplink)
     assert_same_container(mx.from_plink(rplink, n_snps, n_indiv),
-                          mt.from_plink(plink, n_snps, n_indiv))
+                          mt.from_plink(plink, n_snps, n_indiv, device=CPU))
 
 
 def test_codec_functions_match_reference():
@@ -137,16 +139,17 @@ def test_checkpoints_cross_load(tmp_path, tracked):
     ref = mx.from_dense(g, keep_missing_info=tracked)
     p_ref = str(tmp_path / "ref.npz")
     mx.save(p_ref, ref)
-    assert_same_container(ref, mt.load(p_ref))
+    assert_same_container(ref, mt.load(p_ref, device=CPU))
     p_port = str(tmp_path / "port.npz")
-    mt.save(p_port, mt.from_dense(g, keep_missing_info=tracked))
-    assert_same_container(mx.load(p_port), mt.load(p_port))
-    assert_same_container(ref, mt.from_reference_state(ref_state(ref)))
+    mt.save(p_port, mt.from_dense(g, keep_missing_info=tracked, device=CPU))
+    assert_same_container(mx.load(p_port), mt.load(p_port, device=CPU))
+    assert_same_container(ref, mt.from_reference_state(ref_state(ref),
+                                                       device=CPU))
 
 
 def test_freq_cache_family_matches_reference():
     g = ref_bed.simulate_genotypes(90, 500, seed=6)
-    ref, port = mx.from_dense(g), mt.from_dense(g)
+    ref, port = mx.from_dense(g), mt.from_dense(g, device=CPU)
     for name in ("snp_sums", "indiv_sums", "freq_sxi", "pseudo_freq_sxi",
                  "total_sum"):
         want = np.asarray(getattr(ref, name)(), np.float64)
@@ -167,3 +170,23 @@ def test_port_imports_without_jax():
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=REPO, timeout=120)
+
+
+@pytest.mark.parametrize("entry", ["from_dense", "from_bed", "from_plink",
+                                   "load", "from_reference_state"])
+def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
+    """With no device named, a panel goes to the CUDA card; where there is
+    none that raises, and nothing falls back to the CPU."""
+    g = ref_bed.simulate_genotypes(12, 40, seed=3)
+    path = str(tmp_path / "p.bed")
+    pt_bed.write_bed(path, g)
+    npz = str(tmp_path / "p.npz")
+    mt.save(npz, mt.from_dense(g, device=CPU))
+    plink, n_snps, n_indiv = pt_bed.read_bed(path)
+    args = {"from_dense": (g,), "from_bed": (path,),
+            "from_plink": (plink, n_snps, n_indiv), "load": (npz,),
+            "from_reference_state": (ref_state(mx.from_dense(g)),)}[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(mt, entry)(*args)
+    assert getattr(mt, entry)(*args, device=CPU).device.type == "cpu"

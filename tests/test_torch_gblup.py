@@ -16,6 +16,8 @@ from miraculix_tpu.io import bed  # noqa: E402
 import miraculix_tpu_torch as mt  # noqa: E402
 from miraculix_tpu_torch import gblup as pt_gblup  # noqa: E402
 
+CPU = "cpu"  # the port's panels are built on the CPU in these tests
+
 RTOL = 1e-3
 
 
@@ -27,7 +29,7 @@ def _rel(got, want):
 @pytest.fixture(scope="module")
 def panel():
     g = bed.simulate_genotypes(150, 1200, seed=60)
-    return g, mx.from_dense(g), mt.from_dense(g)
+    return g, mx.from_dense(g), mt.from_dense(g, device=CPU)
 
 
 def test_simulate_phenotypes_same_draws(panel):
@@ -77,7 +79,8 @@ def test_snp_effects_and_predict_match_reference(panel):
     new = bed.simulate_genotypes(40, 1200, seed=61)
     want = ref_gblup.predict(mx.from_dense(new), alpha_ref,
                              np.asarray(ref.freq))
-    got = pt_gblup.predict(mt.from_dense(new), alpha, port.freq.numpy())
+    got = pt_gblup.predict(mt.from_dense(new, device=CPU), alpha,
+                           port.freq.numpy())
     assert _rel(got, want) < RTOL
 
 

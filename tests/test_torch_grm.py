@@ -18,11 +18,13 @@ from miraculix_tpu.ops.grm import packed_crossprod as ref_crossprod  # noqa: E40
 import miraculix_tpu_torch as mt  # noqa: E402
 from miraculix_tpu_torch.ops.grm import packed_crossprod_plain  # noqa: E402
 
+CPU = "cpu"  # the port's panels are built on the CPU in these tests
+
 
 @pytest.mark.parametrize("indiv,snps", [(300, 1000), (700, 1500)])
 def test_crossprod_plain_equals_reference(indiv, snps):
     g = bed.simulate_genotypes(indiv, snps, seed=indiv)
-    ref, port = mx.from_dense(g), mt.from_dense(g)
+    ref, port = mx.from_dense(g), mt.from_dense(g, device=CPU)
     want = np.asarray(ref_crossprod(ref.zq_n, interpret=True))
     got = packed_crossprod_plain(port.zq_n).numpy()
     assert got.dtype == np.int32
@@ -33,7 +35,7 @@ def test_crossprod_plain_equals_reference(indiv, snps):
 
 def test_snp_crossprod_snpmajor():
     g = bed.simulate_genotypes(60, 200, seed=8)
-    ref, port = mx.from_dense(g), mt.from_dense(g)
+    ref, port = mx.from_dense(g), mt.from_dense(g, device=CPU)
     np.testing.assert_array_equal(
         mt.snp_crossprod(port, snpmajor_output=True).numpy(),
         np.asarray(mx.snp_crossprod(ref, snpmajor_output=True)))
@@ -44,7 +46,7 @@ def test_snp_crossprod_snpmajor():
                                               (50, 150, False)])
 def test_grm_matches_reference(indiv, snps, scale):
     g = bed.simulate_genotypes(indiv, snps, seed=indiv + 1)
-    ref, port = mx.from_dense(g), mt.from_dense(g)
+    ref, port = mx.from_dense(g), mt.from_dense(g, device=CPU)
     want = np.asarray(mx.grm(ref, scale=scale), np.float64)
     got = mt.grm(port, scale=scale).numpy().astype(np.float64)
     tol = 1e-4 if scale else 1e-3
@@ -57,13 +59,13 @@ def test_grm_matches_reference(indiv, snps, scale):
 def test_grm_diag_and_missing_paths():
     # without missing data the sample mean of each SNP is 2f, so grm()'s
     # diagonal is grm_diag's
-    clean = mt.from_dense(bed.simulate_genotypes(90, 300, seed=9))
+    clean = mt.from_dense(bed.simulate_genotypes(90, 300, seed=9), device=CPU)
     np.testing.assert_allclose(torch.diagonal(mt.grm(clean)).numpy(),
                                mt.grm_diag(clean, scale=True).numpy(),
                                rtol=1e-5)
     g = bed.simulate_genotypes(90, 300, seed=9, missing_rate=0.05)
-    port = mt.from_dense(g)
-    tracked = mt.from_dense(g, keep_missing_info=True)
+    port = mt.from_dense(g, device=CPU)
+    tracked = mt.from_dense(g, keep_missing_info=True, device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.grm(tracked)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
