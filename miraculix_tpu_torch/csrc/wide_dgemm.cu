@@ -20,6 +20,8 @@
 //   - per step of 4 packed words the block decodes its 128 x 64 genotypes
 //     into shared memory once (shift, mask, OR into the mantissa of 2^23,
 //     one FADD) and stages the matching 64 RHS rows, rounded for the tier;
+//     the next step's words and RHS values are loaded into registers while
+//     the current step computes, so no global load is waited on;
 //     the inner loop is then a plain shared-memory SGEMM micro-tile: one
 //     128-bit load of 4 genotypes and one or two of RN RHS values per
 //     4*RN FMAs, every load a broadcast or one contiguous 128-byte line;
@@ -85,27 +87,44 @@ wide_kernel(const uint32_t* __restrict__ zq, int rows, int kw,
 #pragma unroll
     for (int t = 0; t < RN; ++t) acc[i][t] = 0.f;
 
-  for (int tile = t_begin; tile < t_end; ++tile) {
+  // the next step's words and RHS values, loaded into registers while the
+  // current step computes.  Thread tid stages column bj = tid % 64 of the
+  // chunk for word bw = tid / 64 of the step: its slot m holds decoded
+  // column m*kw + w0 + bw, so the 16 slots differ by a constant stride.
+  static_assert(THREADS == MAX_CHUNK * TW, "RHS slab layout");
+  const int bj = tid % MAX_CHUNK, bw = tid / MAX_CHUNK;
+  const bool bj_staged = bj < CG * RN, bj_ok = bj < ncols;
+  const int bg = bj / RN, bt = bj % RN;
+  const long long plane_stride = (long long)kw * n;
+  uint32_t wreg[TW / 2];
+  float breg[16];
+  auto fetch = [&](int tile) {
     const int w0 = tile * TW;
 #pragma unroll
-    for (int i = 0; i < TW / 2; ++i) {
-      const int wl = dw + i;
-      const uint32_t word =
-          (drow_ok && w0 + wl < kw) ? __ldg(zrow + w0 + wl) : 0u;
+    for (int i = 0; i < TW / 2; ++i)
+      wreg[i] = (drow_ok && w0 + dw + i < kw) ? __ldg(zrow + w0 + dw + i) : 0u;
+    const bool ok = bj_ok && w0 + bw < kw;
+    const long long left = cols - (w0 + bw);  // B rows from this word on
+    const float* p = b + (long long)(w0 + bw) * n + c0 + bj;
+#pragma unroll
+    for (int m = 0; m < 16; ++m)
+      breg[m] = (ok && (long long)m * kw < left) ? __ldg(p + m * plane_stride)
+                                                 : 0.f;
+  };
+  if (t_begin < t_end) fetch(t_begin);
+
+  for (int tile = t_begin; tile < t_end; ++tile) {
+#pragma unroll
+    for (int i = 0; i < TW / 2; ++i)
 #pragma unroll
       for (int m = 0; m < 16; ++m)
-        as[(m * TW + wl) * BM + drow] = mx::geno(word, m);
-    }
-    for (int i = tid; i < BK * CG * RN; i += THREADS) {
-      const int k = i / (CG * RN), j = i % (CG * RN);
-      const int m = k / TW, wl = k % TW;
-      const long long src = (long long)m * kw + w0 + wl;
-      float v = 0.f;
-      if (j < ncols && w0 + wl < kw && src < cols)
-        v = mx::rhs_value<RHS>(b[src * n + c0 + j]);
-      bs[bslot<RNP>(k, j / RN, j % RN)] = v;
-    }
+        as[(m * TW + dw + i) * BM + drow] = mx::geno(wreg[i], m);
+    if (bj_staged)
+#pragma unroll
+      for (int m = 0; m < 16; ++m)
+        bs[bslot<RNP>(m * TW + bw, bg, bt)] = mx::rhs_value<RHS>(breg[m]);
     __syncthreads();
+    if (tile + 1 < t_end) fetch(tile + 1);
 #pragma unroll 4
     for (int k = 0; k < BK; ++k) {
       const float4 a = *reinterpret_cast<const float4*>(&as[k * BM + rg * RM]);
