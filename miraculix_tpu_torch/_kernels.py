@@ -138,7 +138,7 @@ def _raise_if(err: int, what: str) -> None:
 
 
 TALL_WARPS_PER_SM = 128  # launched warps per SM the contraction split aims at
-WIDE_BLOCKS_PER_SM = 8   # launched wide blocks per SM (two waves of 4)
+WIDE_BLOCKS_PER_SM = 8   # launched wide blocks per SM the split aims at
 
 
 def _sms(device) -> int:

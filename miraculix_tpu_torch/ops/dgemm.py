@@ -23,7 +23,6 @@ from .common import decode_planar16
 
 TALL_LIMITS = {"fast": 64, "bf16": 128, "f32": 128}  # widest tall RHS per tier
 TALL_MODES = {"fast": "split", "bf16": "bf16", "f32": "f32"}
-WIDE_CHUNK = 512  # packed_matmul runs wider RHS in column chunks of this
 
 
 def rhs_values(b: torch.Tensor, rhs: str) -> torch.Tensor:
@@ -75,31 +74,28 @@ def packed_matmul_tall(zq_other: torch.Tensor, b: torch.Tensor,
     return ct.T if cv is None else (ct.T, v)
 
 
-def _wide_chunks(b: torch.Tensor, split: bool, single_bf16: bool):
-    """(column slice, kernel instance) per WIDE_CHUNK columns of B, as the
-    reference chunks: ``single_bf16`` -> "bf16"; ``split`` -> "split" above
-    64 columns (its in-kernel split), "hilo" at 64 or fewer (its host hi||lo
-    concatenation); otherwise "f32"."""
-    for j in range(0, b.shape[1], WIDE_CHUNK):
-        bj = b[:, j:j + WIDE_CHUNK]
-        rhs = ("bf16" if single_bf16 else
-               ("split" if bj.shape[1] > 64 else "hilo") if split else "f32")
-        yield bj, rhs
-
-
-def _cat(parts: list) -> torch.Tensor:
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+def wide_rhs(n: int, split: bool, single_bf16: bool) -> str:
+    """The wide kernel instance for an n-column RHS, as the reference picks
+    its kernel: ``single_bf16`` -> "bf16"; ``split`` -> "split" above 64
+    columns (its in-kernel split), "hilo" at 64 or fewer (its host hi||lo
+    concatenation); otherwise "f32".  (The reference also cuts RHS wider
+    than 512 columns into chunks for its VMEM budget; the kernel takes any
+    width in one launch.)"""
+    if single_bf16:
+        return "bf16"
+    if split:
+        return "split" if n > 64 else "hilo"
+    return "f32"
 
 
 def packed_matmul_plain(zq: torch.Tensor, b: torch.Tensor, *,
-                        split: bool = True, single_bf16: bool = False,
-                        per_plane: bool = True) -> torch.Tensor:
+                        split: bool = True,
+                        single_bf16: bool = False) -> torch.Tensor:
     """Plain version of :func:`packed_matmul`: decode densely in f32 and
-    multiply by each chunk's RHS values."""
+    multiply by the instance's RHS values."""
     b = b.to(torch.float32)
     d = decode_planar16(zq, torch.float32)[:, :b.shape[0]]
-    return _cat([d @ rhs_values(bj, rhs)
-                 for bj, rhs in _wide_chunks(b, split, single_bf16)])
+    return d @ rhs_values(b, wide_rhs(b.shape[1], split, single_bf16))
 
 
 def packed_matmul(zq: torch.Tensor, b, *, split: bool = True,
@@ -122,9 +118,8 @@ def packed_matmul(zq: torch.Tensor, b, *, split: bool = True,
     if not zq.is_cuda:
         return packed_matmul_plain(zq, b, split=split,
                                    single_bf16=single_bf16)
-    zq = zq.contiguous()
-    return _cat([_kernels.wide_dgemm(zq, bj.contiguous(), rhs)
-                 for bj, rhs in _wide_chunks(b, split, single_bf16)])
+    return _kernels.wide_dgemm(zq.contiguous(), b.contiguous(),
+                               wide_rhs(b.shape[1], split, single_bf16))
 
 
 def _resolve_center(center, device) -> tuple:

@@ -117,7 +117,7 @@ def test_dgemm_wide_missing(trans, mode, precision):
     (65, dict(split=True, per_plane=False)),      # B11
     (65, dict(single_bf16=True)),                 # B5 bf16
     (130, dict(split=False)),                     # B5 f32
-    (600, dict(split=True)),                      # two 512-column chunks
+    (600, dict(split=True)),                      # reference: 512 + 88
 ])
 def test_packed_matmul_matches_reference(panel, n, kw):
     g, ref, port = panel
