@@ -227,13 +227,16 @@ def main() -> int:
             dec = decode_planar16(zq[:contract], torch.float32)  # library's
             ones = torch.ones(contract, device=dev)
             cvs = {"n": 2.0 * gm.freq, "t": ones}
-            for ncol in (32, 1):
-                cases = [("tall_dgemm_cv", "centered", cvs[trans], "split")]
+            for ncol in (32, 1, 128):
+                cases = []
+                if ncol <= 64:   # the split mode's widths (the fast tier)
+                    cases += [("tall_dgemm_cv", "centered", cvs[trans],
+                               "split")]
+                    if trans == "n":
+                        cases += [("tall_dgemm", "uncentered", None, "split")]
                 if trans == "n":
-                    cases += [("tall_dgemm", "uncentered", None, "split")]
-                    if ncol == 32:
-                        cases += [("tall_dgemm_bf16", "", None, "bf16"),
-                                  ("tall_dgemm_f32", "", None, "f32")]
+                    cases += [("tall_dgemm_bf16", "", None, "bf16"),
+                              ("tall_dgemm_f32", "", None, "f32")]
                 for name, label, cv, mode in cases:
                     b = randn(contract, ncol)
                     tag = f"{trans} {label} ncol={ncol}".replace("  ", " ")
@@ -260,38 +263,31 @@ def main() -> int:
                         contract * zq.shape[1] * 16 * ncol,
                         4 * (contract * zq.shape[1] + contract * ncol
                              + 16 * zq.shape[1] * ncol), 20 if ncol == 1
-                        else 10)
+                        else 5 if ncol == 128 else 10)
                     lib_fn = None
                     if ncol == 32 and trans == "n":
                         record(name, 0.0, t)
             del dec
             torch.cuda.empty_cache()
-        # tall bf16/f32 modes at 1 and 128 columns ('n')
-        zq, contract = orient["n"]
-        for mode in ("bf16", "f32"):
-            for ncol in (1, 128):
-                b = randn(contract, ncol)
-                compare(f"tall_dgemm_{mode}", f"n ncol={ncol}",
-                        packed_matmul_tall(zq, b, mode=mode),
-                        packed_matmul_tall_plain(zq, b, mode=mode))
 
         # wide schedule: zq_n for 'n' (rows = animals), zq_t for 't'
         wide_orient = {"n": (gm.zq_n, N_SNPS), "t": (gm.zq_t, N_INDIV)}
-        wide_cases = [  # (name, trans, ncol, packed_matmul options, timed)
-            ("wide_dgemm_split", "n", 65, dict(), True),
-            ("wide_dgemm_split", "t", 65, dict(), True),
-            ("wide_dgemm_split", "n", 128, dict(), False),
-            ("wide_dgemm_split", "n", 600, dict(), False),
-            ("wide_dgemm_f32", "n", 130, dict(split=False), True),
-            ("wide_dgemm_f32", "n", 65, dict(split=False), False),
-            ("wide_dgemm_bf16", "n", 130, dict(single_bf16=True), True),
-            ("wide_dgemm_bf16", "n", 65, dict(single_bf16=True), False),
-            ("wide_dgemm_hilo", "n", 32, dict(), True),
+        wide_cases = [  # (name, trans, ncol, packed_matmul options); the
+            # JSON keeps each name's first case
+            ("wide_dgemm_split", "n", 65, dict()),
+            ("wide_dgemm_split", "n", 128, dict()),
+            ("wide_dgemm_split", "n", 600, dict()),
+            ("wide_dgemm_f32", "n", 130, dict(split=False)),
+            ("wide_dgemm_f32", "n", 65, dict(split=False)),
+            ("wide_dgemm_bf16", "n", 130, dict(single_bf16=True)),
+            ("wide_dgemm_bf16", "n", 65, dict(single_bf16=True)),
+            ("wide_dgemm_hilo", "n", 32, dict()),
+            ("wide_dgemm_split", "t", 65, dict()),
         ]
         for trans in ("n", "t"):
             zq, cols = wide_orient[trans]
-            dec = None
-            for name, tr, ncol, opts, timed in wide_cases:
+            dec = decode_planar16(zq, torch.float32)[:, :cols]  # library's
+            for name, tr, ncol, opts in wide_cases:
                 if tr != trans:
                     continue
                 b = randn(cols, ncol)
@@ -300,10 +296,6 @@ def main() -> int:
                 want = packed_matmul_plain(zq, b, **opts)
                 compare(name, tag, got, want)
                 del got, want
-                if not timed:
-                    continue
-                if dec is None:
-                    dec = decode_planar16(zq, torch.float32)[:, :cols]
                 rhs = name.rsplit("_", 1)[1]
                 if rhs == "f32" or rhs == "split":
                     lib_fn = (lambda d=dec, bw=b: d @ bw)
@@ -318,8 +310,9 @@ def main() -> int:
                             lambda: packed_matmul_plain(zq, b, **opts),
                             lib_fn, zq.shape[0] * cols * ncol,
                             4 * (zq.numel() + cols * ncol
-                                 + zq.shape[0] * ncol), 10)
-                if "ms" not in results[name]:   # the JSON keeps the first
+                                 + zq.shape[0] * ncol), 3 if ncol > 128
+                            else 10)
+                if "ms" not in results[name]:
                     record(name, 0.0, t)
                 lib_fn = None
             del dec
