@@ -51,9 +51,9 @@ QTL_ENRICH = 10.0     # median chi2 over the QTL / median over all SNPs
 GWAS_TOL, GWAS_MAXITER = 1e-2, 300   # absolute CG residual norm (|rhs| ~ 1e2)
 N_QTL = 100           # gblup.simulate_phenotypes' default
 
-# Published peaks of one H100 SXM (dense): bf16 and int8 tensor cores, f32
-# outside them, and HBM; a kernel's bound is the larger of ops/peak and
-# bytes/rate (on-chip-measurement guide).
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 and
+# int8 tensor cores, f32 outside them, and HBM; a kernel's bound is the
+# larger of ops/peak and bytes/rate.
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_RATE = 3.35e12
 

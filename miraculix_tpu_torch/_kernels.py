@@ -95,7 +95,7 @@ def build() -> Path:
             or ([link.returncode] if link.returncode else [])
         if failed:
             raise RuntimeError(f"nvcc failed ({failed[0]}):\n" + "".join(logs))
-        os.replace(so, lib)  # atomic: a concurrent builder sees all or nothing
+        os.replace(so, lib)  # atomic: a concurrent build sees all or nothing
     return lib
 
 
