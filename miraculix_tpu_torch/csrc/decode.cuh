@@ -1,4 +1,5 @@
-// Genotype decode and RHS rounding shared by the packed-product kernels.
+// Genotype decode, RHS rounding and the split reduction shared by the
+// packed-product kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,5 +34,28 @@ __device__ __forceinline__ float rhs_value(float b) {
   if (RHS == RHS_BF16) return hi;
   return hi + bf16_rne(b - hi);
 }
+
+namespace {  // one copy per translation unit: both kernels' sources use it
+
+// out[i] = sum over splits of part[s][i], in split order; with vpart, the
+// first n threads do the same for the center partials vpart[s][i]
+__global__ void reduce_splits(const float* __restrict__ part, int splits,
+                              long long len, float* __restrict__ out,
+                              const float* __restrict__ vpart, int n,
+                              float* __restrict__ vout) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < len) {
+    float acc = 0.f;
+    for (int s = 0; s < splits; ++s) acc += part[s * len + i];
+    out[i] = acc;
+  }
+  if (vpart != nullptr && i < n) {
+    float acc = 0.f;
+    for (int s = 0; s < splits; ++s) acc += vpart[s * n + i];
+    vout[i] = acc;
+  }
+}
+
+}  // namespace
 
 }  // namespace mx

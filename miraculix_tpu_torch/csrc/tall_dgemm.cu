@@ -20,8 +20,11 @@
 // fast tier and up to 128 at the bf16 and f32 tiers; wider RHS run as
 // column chunks of at most 64 over gridDim.z.
 //
-// Bound on H100: the FMA pipe.  Every packed word read feeds 16*n FMAs and
-// 16 decodes, so at n >= 4 the CUDA cores, not HBM, set the time.  Design:
+// Bound on H100: the larger of the bytes moved (the packed panel: 0.08 ms at
+// 65,536 x 16,384) and the tier's bf16 tensor-core passes (one to three;
+// 0.14 ms for the split tier at n = 32).  This design runs on the f32 FMA
+// pipe instead: every packed word read feeds 16*n FMAs and 16 decodes, so
+// at n >= 4 the CUDA cores, not HBM, set its time.  Design:
 //   - one lane per packed word; each warp of the block owns JT RHS columns,
 //     so a thread keeps 16*JT accumulators in registers and the genotype
 //     decode (shift, mask, OR into the mantissa of 2^23, one FADD -- no
@@ -141,25 +144,6 @@ tall_kernel(const uint32_t* __restrict__ zq, int kwi,
   if (do_v && tid < ncols) vpart[split * n + c0 + tid] = vacc;
 }
 
-// out[i] = sum over splits of part[s][i], in split order; the first n
-// threads do the same for the center partials.
-__global__ void reduce_splits(const float* __restrict__ part, int splits,
-                              long long len, float* __restrict__ out,
-                              const float* __restrict__ vpart, int n,
-                              float* __restrict__ vout) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i < len) {
-    float acc = 0.f;
-    for (int s = 0; s < splits; ++s) acc += part[s * len + i];
-    out[i] = acc;
-  }
-  if (vpart != nullptr && i < n) {
-    float acc = 0.f;
-    for (int s = 0; s < splits; ++s) acc += vpart[s * n + i];
-    vout[i] = acc;
-  }
-}
-
 template <int JT, int RHS>
 void launch_tall(const uint32_t* zq, int kwi, const float* b,
                  long long contract, int n, const float* cv, long long rps,
@@ -226,7 +210,7 @@ extern "C" int mx_tall_dgemm(const void* zq, int kwi, const void* b,
     const long long len = 16LL * kwi * n;
     const int threads = 256;
     const long long blocks = (len + threads - 1) / threads;
-    reduce_splits<<<(unsigned)blocks, threads, 0, st>>>(
+    mx::reduce_splits<<<(unsigned)blocks, threads, 0, st>>>(
         part, splits, len, (float*)ct, vpart, n, (float*)vout);
   }
   return (int)cudaGetLastError();

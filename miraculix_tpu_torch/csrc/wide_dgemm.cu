@@ -10,10 +10,12 @@
 // TPU scheduling devices; this kernel computes the function: decoded column
 // m*kw + w is word w, plane m, and B rows at or past `cols` count as zero.
 //
-// Bound on H100: the FMA pipe.  Each packed word feeds 16 genotypes times n
+// Bound on H100: operations.  Each packed word feeds 16 genotypes times n
 // columns, so at the GWAS shapes (n = 65: zq_n 16384 x 4096 words against
-// B [65536, 65]) the work is 1.4e11 FLOP, 2.1 ms at the 67 TFLOP/s f32
-// peak, against 0.09 ms for the 0.29 GB the call must move.  Design:
+// B [65536, 65]) the work is 1.4e11 FLOP: 0.28 ms as the two bf16
+// tensor-core passes of the split tier (0.14 ms bf16, 0.42 ms for the f32
+// tier's three), against 0.09 ms for the 0.29 GB the call must move.  This
+// design runs on the f32 FMA pipe instead (2.1 ms at its 67 TFLOP/s peak):
 //   - a block owns 128 output rows and one column chunk (n is cut into
 //     ceil(n / 64) chunks of equal width, so n = 65 runs as 33 + 32 and
 //     not as 64 + 1); 256 threads, each 4 rows x RN columns of the chunk;
@@ -161,17 +163,6 @@ wide_kernel(const uint32_t* __restrict__ zq, int rows, int kw,
   }
 }
 
-// out[i] = sum over splits of part[s][i], in split order
-__global__ void reduce_splits(const float* __restrict__ part, int splits,
-                              long long len, float* __restrict__ out) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i < len) {
-    float acc = 0.f;
-    for (int s = 0; s < splits; ++s) acc += part[s * len + i];
-    out[i] = acc;
-  }
-}
-
 template <int RHS>
 void launch_rhs(int rn, dim3 grid, const uint32_t* zq, int rows, int kw,
                 const float* b, long long cols, int n, int cw, int tps,
@@ -225,8 +216,9 @@ extern "C" int mx_wide_dgemm(const void* zq, int rows, int kw, const void* b,
   if (splits > 1) {
     const long long len = (long long)rows * n;
     const int threads = 256;
-    reduce_splits<<<(unsigned)((len + threads - 1) / threads), threads, 0,
-                    st>>>(part, splits, len, (float*)out);
+    mx::reduce_splits<<<(unsigned)((len + threads - 1) / threads), threads,
+                        0, st>>>(part, splits, len, (float*)out, nullptr, 0,
+                                 nullptr);
   }
   return (int)cudaGetLastError();
 }
