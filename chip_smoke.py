@@ -10,12 +10,16 @@ Builds the CUDA kernels of ``miraculix_tpu_torch/csrc`` and
    without the fused center vector and in its bf16 and f32 modes (max error
    <= 1e-5 of max |plain|), the wide dgemm kernel in its four RHS instances
    (fast split, f32, bf16, bf16 hi||lo; error <= 4e-6 of each output's sum
-   of |terms|), each against a plain version that rounds
-   B the same way, and the integer crossproduct (exactly equal).  Each
-   dgemm check also reads a control, the plain product at the other grade
-   (bf16(B) against B), which must exceed the limit under the same metric.
-   Each kernel is timed beside its plain version, one PyTorch library call
-   on the pre-decoded panel, and its bound on the card;
+   of |terms|), each against a plain version that rounds B the same way,
+   the integer crossproduct (exactly equal), the
+   rectangular crossproduct at an LD row block and a ``grm_blocked`` tile
+   and the masked-grid crossproduct on the whole square (exactly equal, the
+   latter to K3 too), and the weighted crossproduct at the GCTA GRM's
+   weights (error <= 4e-6 of each output).  Each dgemm and weighted check
+   also reads a control, the plain product at the other grade (bf16(B)
+   against B, bf16(w) against w), which must exceed the limit under the
+   same metric.  Each kernel is timed beside its plain version, one PyTorch
+   library call on the pre-decoded panel, and its bound on the card;
 2. runs the main GBLUP path at that size from the launch counters' zero:
    simulate -> write .bed -> ``from_bed`` on the GPU -> ``grm`` (diagonal
    checked against ``grm_diag``) -> simulated phenotypes -> ``gblup`` (CG
@@ -27,8 +31,17 @@ Builds the CUDA kernels of ``miraculix_tpu_torch/csrc`` and
    the simulated QTL enriched >= 10x in median chi2;
 4. runs the bf16/f32 tiers from the counters' zero: ``grm_cg_solve`` at
    both tiers, wide and tall, and ``packed_matmul`` at 32 columns;
-5. checks the GPU pipeline against the port's CPU path on a small panel
-   (GBLUP, GRM and the four scans).
+5. runs the LD family from the counters' zero on the panel with 8,192
+   planted adjacent duplicate pairs: ``ld_windowed``, ``ld_score`` and
+   ``ld_prune`` over 4 chromosomes at window 512, ``ld`` and ``ld_blocked``
+   on the first chromosome (prune drops exactly one SNP of each pair; the
+   scores, the band and the blocked matrix agree with ``ld``);
+6. runs the GRM family at 16,384 animals from the counters' zero:
+   ``grm_blocked`` against ``grm``, the masked-grid crossproduct against
+   K3, ``grm_yang`` against its float64 definition on 256 rows;
+7. checks the GPU pipeline against the port's CPU path on small panels
+   (GBLUP, GRM, the four scans; the LD and GRM families on a panel with 2%
+   missing genotypes).
 
 Earlier lines report per-phase seconds, errors, launch counts, the card's
 name and power limit, and one JSON object of kernel results; the last line
@@ -58,6 +71,8 @@ LINEAR_RTOL = 1e-4    # gwas_linear vs f64 regressions, relative to max |x|
 QTL_ENRICH = 10.0     # median chi2 over the QTL / median over all SNPs
 GWAS_TOL, GWAS_MAXITER = 1e-2, 300   # absolute CG residual norm (|rhs| ~ 1e2)
 N_QTL = 100           # gblup.simulate_phenotypes' default
+LD_WINDOW, LD_R2 = 512, 0.2   # plink --indep-pairwise 512 ... 0.2
+LD_BLOCK = 4096               # ld_windowed's row block: [4096, 4608] products
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 and
 # int8 tensor cores, and HBM; a kernel's bound is the larger of ops/peak
@@ -84,17 +99,25 @@ SOURCES = {  # kernel -> (source, TPU kernel it replaces)
                         "miraculix_tpu/ops/dgemm.py:54"),
     "crossprod": ("miraculix_tpu_torch/csrc/crossprod.cu",
                   "miraculix_tpu/ops/grm.py:148,175"),
+    "crossprod_rect": ("miraculix_tpu_torch/csrc/crossprod.cu",
+                       "miraculix_tpu/ops/grm.py:71"),
+    "crossprod_tri": ("miraculix_tpu_torch/csrc/crossprod.cu",
+                      "miraculix_tpu/ops/grm.py:85"),
+    "crossprod_weighted": ("miraculix_tpu_torch/csrc/crossprod_weighted.cu",
+                           "miraculix_tpu/ops/grm.py:450"),
 }
 # the unit and passes that bound each kernel: one rule for the products,
 # the bf16 tensor-core passes that the tier's grade needs (genotypes are
 # exact in bf16; B takes one bf16 piece at the bf16 tier, hi + lo at the
 # split tier, three pieces for its 24 bits at the f32 tier).  The split and
-# f32 names are one kernel instance (B as given) at two tiers' bounds.
+# f32 names are one kernel instance (B as given) at two tiers' bounds.  The
+# integer crossproducts are one int8 pass; the weighted one is f32 grade.
 UNIT = {"tall_dgemm": ("bf16", 2), "tall_dgemm_cv": ("bf16", 2),
         "tall_dgemm_bf16": ("bf16", 1), "tall_dgemm_f32": ("bf16", 3),
         "wide_dgemm_split": ("bf16", 2), "wide_dgemm_hilo": ("bf16", 2),
         "wide_dgemm_bf16": ("bf16", 1), "wide_dgemm_f32": ("bf16", 3),
-        "crossprod": ("int8", 1)}
+        "crossprod": ("int8", 1), "crossprod_rect": ("int8", 1),
+        "crossprod_tri": ("int8", 1), "crossprod_weighted": ("bf16", 3)}
 
 
 class CheckFailed(Exception):
@@ -136,16 +159,24 @@ def main() -> int:
     import numpy as np
 
     from miraculix_tpu_torch import _kernels, gblup
-    from miraculix_tpu_torch import (from_bed, from_dense, grm, grm_cg_solve,
-                                     grm_diag, gwas_linear, gwas_logistic,
-                                     gwas_mixed, gwas_mixed_loco,
-                                     packed_crossprod, packed_matmul)
+    from miraculix_tpu_torch import (dominance_grm, from_bed, from_dense, grm,
+                                     grm_blocked, grm_cg_solve, grm_diag,
+                                     grm_yang, gwas_linear, gwas_logistic,
+                                     gwas_mixed, gwas_mixed_loco, ld,
+                                     ld_blocked, ld_prune, ld_score,
+                                     ld_windowed, packed_crossprod,
+                                     packed_crossprod_rect, packed_matmul,
+                                     pairwise_nonmissing, subset_snps)
     from miraculix_tpu_torch.io import bed
     from miraculix_tpu_torch.ops.common import decode_planar16
     from miraculix_tpu_torch.ops.dgemm import (packed_matmul_plain,
                                                packed_matmul_tall,
                                                packed_matmul_tall_plain)
-    from miraculix_tpu_torch.ops.grm import packed_crossprod_plain
+    from miraculix_tpu_torch.ops.grm import (_ld_prune_greedy,
+                                             packed_crossprod_plain,
+                                             packed_crossprod_rect_plain,
+                                             packed_crossprod_weighted,
+                                             packed_crossprod_weighted_plain)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -360,28 +391,90 @@ def main() -> int:
             del dec
             torch.cuda.empty_cache()
 
+        def exact(name, label, got, want):
+            equal = bool(torch.equal(got, want))
+            err = float((got - want).abs().max())
+            log(f"check {name} {label} {tuple(got.shape)}: equal={equal} "
+                f"max_abs_err={err}")
+            if not equal:
+                disagree.append(f"{name} {label}")
+            record(name, err)
+
+        # K3 and B12 on the whole square, B12 against K3 too
+        zn = gm.zq_n
+        rows, kw = zn.shape
+        want = packed_crossprod_plain(zn)
+        k3 = packed_crossprod(zn)
+        exact("crossprod", "vs plain", k3, want)
+        exact("crossprod_tri", "vs plain", packed_crossprod(zn, wrap=False),
+              want)
+        exact("crossprod_tri", "vs K3", packed_crossprod(zn, wrap=False), k3)
+        del want, k3
+        torch.cuda.empty_cache()
+        tri_macs = rows * (rows + 1) / 2 * 16 * kw
+        d8 = decode_planar16(zn, torch.int8)
+        for name, kernel in (("crossprod", lambda: packed_crossprod(zn)),
+                             ("crossprod_tri",
+                              lambda: _kernels.crossprod_tri(zn))):
+            record(name, 0.0, timings(
+                name, f"rows={rows}", kernel,
+                lambda: packed_crossprod_plain(zn),
+                lambda: torch._int_mm(d8, d8.T), tri_macs,
+                4 * (zn.numel() + rows * rows), 3))
+        del d8
+        torch.cuda.empty_cache()
+
+        # B8 at an LD row block of zq_t and at an off-diagonal grm_blocked
+        # tile of zq_n (the JSON keeps the LD block)
+        half = N_INDIV // 2
+        for label, za, zb in (
+                ("ld block", gm.zq_t[:LD_BLOCK],
+                 gm.zq_t[:LD_BLOCK + LD_WINDOW]),
+                ("grm_blocked tile", zn[:half], zn[half:2 * half])):
+            za, zb = za.contiguous(), zb.contiguous()
+            exact("crossprod_rect", label, packed_crossprod_rect(za, zb),
+                  packed_crossprod_rect_plain(za, zb))
+            da8 = decode_planar16(za, torch.int8)
+            db8 = decode_planar16(zb, torch.int8)
+            t = timings("crossprod_rect", f"{label} {za.shape[0]}x"
+                        f"{zb.shape[0]}x{16 * za.shape[1]}",
+                        lambda: packed_crossprod_rect(za, zb),
+                        lambda: packed_crossprod_rect_plain(za, zb),
+                        lambda: torch._int_mm(da8, db8.T),
+                        za.shape[0] * zb.shape[0] * 16 * za.shape[1],
+                        4 * (za.numel() + zb.numel()
+                             + za.shape[0] * zb.shape[0]), 10)
+            if "ms" not in results["crossprod_rect"]:
+                record("crossprod_rect", 0.0, t)
+            del da8, db8
+            torch.cuda.empty_cache()
+
+        # B9 at grm_yang's weights: 1 / (2pq m); every term is >= 0, so the
+        # sum of |terms| of each output is the output itself
+        f64 = gm.freq.double()
+        pq2 = 2.0 * f64 * (1.0 - f64)
+        wy = torch.where(pq2 > 1e-12, 1.0 / (pq2 * float((pq2 > 1e-12).sum())),
+                         torch.zeros_like(pq2)).float()
+        got = packed_crossprod_weighted(zn, wy)
+        want = packed_crossprod_weighted_plain(zn, wy)
+        control = packed_crossprod_weighted_plain(
+            zn, wy.to(torch.bfloat16).to(torch.float32))
+        compare("crossprod_weighted", f"rows={rows}", got, want, control,
+                scale=want)
+        del got, want, control
+        torch.cuda.empty_cache()
+        dec = decode_planar16(zn, torch.float32)
+        dw = dec * torch.cat([wy, torch.zeros(16 * kw - N_SNPS, device=dev)])
+        record("crossprod_weighted", 0.0, timings(
+            "crossprod_weighted", f"rows={rows}",
+            lambda: packed_crossprod_weighted(zn, wy),
+            lambda: packed_crossprod_weighted_plain(zn, wy),
+            lambda: dw @ dec.T, tri_macs,
+            4 * (zn.numel() + 16 * kw + rows * rows), 2))
+        del dec, dw, gm, zn
+        torch.cuda.empty_cache()
         check(not disagree, f"kernels disagree with their plain versions "
               f"(or a control reads within the limit): {disagree}")
-        got = packed_crossprod(gm.zq_n)
-        want = packed_crossprod_plain(gm.zq_n)
-        equal = bool(torch.equal(got, want))
-        err = float((got - want).abs().max())
-        log(f"check crossprod {tuple(got.shape)}: equal={equal} "
-            f"max_abs_err={err}")
-        check(equal, "crossprod differs from the plain f64 product")
-        del got, want
-        torch.cuda.empty_cache()
-        d8 = decode_planar16(gm.zq_n, torch.int8)
-        rows, kw = gm.zq_n.shape
-        t = timings("crossprod", f"rows={rows}",
-                    lambda: packed_crossprod(gm.zq_n),
-                    lambda: packed_crossprod_plain(gm.zq_n),
-                    lambda: torch._int_mm(d8, d8.T),
-                    rows * (rows + 1) / 2 * 16 * kw,
-                    4 * (gm.zq_n.numel() + rows * rows), 3)
-        record("crossprod", 0.0, t)
-        del d8, gm
-        torch.cuda.empty_cache()
 
         # -- 2. the main GBLUP path, counted -------------------------------
         launches = {k: 0 for k in _kernels.LAUNCHES}
@@ -518,12 +611,132 @@ def main() -> int:
     check(c32.shape == (gm.zq_n.shape[0], 32)
           and bool(torch.isfinite(c32).all()), "packed_matmul ncol=32")
     take_counts("tiers")
-    del gm, geno, c32, b32
+    del c32, b32
+
+    per_fn = {}
+
+    def counted(name, fn):
+        before = dict(_kernels.LAUNCHES)
+        out, secs = sync_time(fn)
+        per_fn[name] = {k: v - before[k] for k, v in
+                        _kernels.LAUNCHES.items() if v - before[k]}
+        log(f"phase main {name}: {secs:.3f} s launches={per_fn[name]}")
+        return out
+
+    # -- 5. the LD family, counted -----------------------------------------
+    # SNP 8k+1 := SNP 8k: 8,192 adjacent exact duplicates (r = 1) in an HWE
+    # panel whose other pairs have r^2 ~ 1/16,384
+    idx = np.arange(N_SNPS)
+    idx[1::8] = idx[0::8]
+    gl = subset_snps(gm, idx)
+    t0 = time.perf_counter()
+    _kernels.reset_launch_counts()
+    band = counted("ld_windowed", lambda: ld_windowed(gl, window=LD_WINDOW))
+    score = counted("ld_score", lambda: ld_score(
+        gl, window=LD_WINDOW, adjusted=True, chrom=chrom))
+    keep = counted("ld_prune", lambda: ld_prune(
+        gl, window=LD_WINDOW, r2_threshold=LD_R2, chrom=chrom))
+    c1 = N_SNPS // 4
+    g1 = subset_snps(gl, np.arange(c1))          # chromosome 1
+    r_full = counted("ld", lambda: ld(g1))
+    r_blk = counted("ld_blocked", lambda: ld_blocked(g1, row_block=8192))
+    take_counts("ld")
+    for name in ("ld_windowed", "ld_score", "ld_prune", "ld_blocked"):
+        check(per_fn[name].get("crossprod_rect", 0) > 0,
+              f"{name} did not launch the rectangular kernel")
+    dropped = int((~keep).sum())
+    one_each = bool((keep[0::8] ^ keep[1::8]).all())
+    log(f"check ld_prune: dropped {dropped} SNPs, one of each planted pair: "
+        f"{one_each}")
+    check(dropped == N_SNPS // 8 and one_each,
+          "ld_prune did not drop exactly one SNP of each planted pair")
+    ahead = np.arange(N_SNPS)[:, None] + 1 + np.arange(LD_WINDOW)[None, :]
+    valid = (ahead < N_SNPS) & (chrom[np.minimum(ahead, N_SNPS - 1)]
+                                == chrom[:, None])
+    # the host greedy scan alone, on the offender band of ld_windowed's r
+    f = gl.freq.cpu().numpy().astype(np.float64)
+    offend = valid & (band * band > np.float32(LD_R2))
+    t0_scan = time.perf_counter()
+    keep_scan = _ld_prune_greedy(offend, np.minimum(f, 1.0 - f), N_SNPS,
+                                 LD_WINDOW)
+    log(f"phase host greedy prune scan ({N_SNPS} SNPs, window {LD_WINDOW}): "
+        f"{time.perf_counter() - t0_scan:.3f} s")
+    check(bool(np.array_equal(keep_scan, keep)),
+          "ld_prune differs from the greedy scan of ld_windowed's band")
+    # LD scores recomputed in host f64 from the band: adjusted r^2 over the
+    # partners on the same chromosome, both directions
+    r2 = band.astype(np.float64) ** 2
+    r2 -= (1.0 - r2) / (N_INDIV - 2)
+    r2[~valid] = 0.0
+    want = 1.0 + r2.sum(axis=1)
+    for d in range(LD_WINDOW):
+        want[d + 1:] += r2[: N_SNPS - d - 1, d]
+    rel = float(np.abs(score - want).max() / np.abs(want).max())
+    log(f"check ld_score vs host f64 from the band: rel={rel:.3g}")
+    check(rel <= 2e-4, "ld_score disagrees with its band")
+    del r2, ahead, valid, offend, want
+    diag_err = float((torch.diagonal(r_full) - 1.0).abs().max())
+    pairs = torch.arange(0, c1, 8, device=dev)
+    r_min = float(r_full[pairs, pairs + 1].min())
+    blk_err = float((torch.from_numpy(r_blk).to(dev) - r_full).abs().max())
+    sup = torch.arange(c1, device=dev)[:, None] + 1 + torch.arange(
+        LD_WINDOW, device=dev)[None, :]
+    inside = sup < c1
+    want_band = torch.where(inside, torch.gather(r_full, 1, sup.clamp(
+        max=c1 - 1)), torch.zeros((), device=dev))
+    got_band = torch.where(inside, torch.from_numpy(band[:c1]).to(dev),
+                           torch.zeros((), device=dev))
+    band_err = float((got_band - want_band).abs().max())
+    log(f"check ld on chromosome 1: |diag - 1| {diag_err:.3g}, planted "
+        f"pairs r >= {r_min:.8f}, ld_blocked max_abs {blk_err:.3g}, band vs "
+        f"superdiagonals max_abs {band_err:.3g}")
+    check(diag_err <= 1e-6 and r_min >= 1 - 1e-5, "ld diagonal or pairs")
+    check(blk_err <= 2e-4, "ld_blocked disagrees with ld")
+    check(band_err <= 2e-5, "ld_windowed disagrees with ld")
+    log(f"phase main ld family (with checks): {time.perf_counter() - t0:.3f} s")
+    del gl, g1, band, r_full, r_blk, sup, inside, want_band, got_band
+    torch.cuda.empty_cache()
+
+    # -- 6. the GRM family at 16,384 animals, counted -----------------------
+    t0 = time.perf_counter()
+    _kernels.reset_launch_counts()
+    gb = counted("grm_blocked", lambda: grm_blocked(gm, row_block=8192))
+    g_mat = counted("grm", lambda: grm(gm))
+    err = float((torch.from_numpy(gb).to(dev) - g_mat).abs().max())
+    log(f"check grm_blocked vs grm: max_abs={err:.3g}")
+    check(err <= 1e-4, "grm_blocked disagrees with grm")
+    del gb, g_mat
+    tri = counted("packed_crossprod(wrap=False)",
+                  lambda: packed_crossprod(gm.zq_n, wrap=False))
+    same = bool(torch.equal(tri, packed_crossprod(gm.zq_n)))
+    log(f"check masked-grid crossproduct vs K3: equal={same}")
+    check(same, "packed_crossprod(wrap=False) differs from K3")
+    del tri
+    gy = counted("grm_yang", lambda: grm_yang(gm))
+    take_counts("grm family")
+    # the f64 definition on rows 0-255: sum_s zc_is zc_js w_s, w = 1/(2pq m)
+    f64 = gm.freq.double()
+    pq2 = 2.0 * f64 * (1.0 - f64)
+    use = pq2 > 1e-12
+    w64 = torch.where(use, 1.0 / (pq2 * float(use.sum())),
+                      torch.zeros_like(pq2))
+    gd = torch.from_numpy(geno).to(dev)
+    lhs = (gd[:256].double() - 2.0 * f64) * w64
+    want = torch.cat([lhs @ (gd[c:c + 4096].double() - 2.0 * f64).T
+                      for c in range(0, N_INDIV, 4096)], dim=1)
+    rel = float((gy[:256].double() - want).abs().max() / want.abs().max())
+    log(f"check grm_yang rows 0-255 vs f64 definition: rel={rel:.3g}; "
+        f"mean diagonal {float(torch.diagonal(gy).mean()):.6f}")
+    check(bool(torch.isfinite(gy).all()) and rel <= 1e-5,
+          "grm_yang disagrees with its definition")
+    log(f"phase main grm family (with checks): "
+        f"{time.perf_counter() - t0:.3f} s")
+    del gy, gd, lhs, want, gm, geno
     torch.cuda.empty_cache()
     missing = [k for k in SOURCES if launches[k] == 0]
     check(not missing, f"never launched on a main path: {missing}")
 
-    # -- 5. GPU vs CPU path on a small panel -----------------------------
+    # -- 7. GPU vs CPU path on small panels -------------------------------
     small = bed.simulate_genotypes(600, 5000, seed=SEED + 1)
     ys, _ = gblup.simulate_phenotypes(small, h2=0.5, seed=SEED + 1)
     ysb = (ys > np.median(ys)).astype(np.float64)
@@ -548,6 +761,43 @@ def main() -> int:
         + " ".join(f"{k} rel={v:.3g}" for k, v in rels.items()))
     check(err_grm <= 1e-5 and all(v <= SMALL_RTOL for v in rels.values()),
           "GPU pipeline disagrees with the CPU path on the small panel")
+
+    # the LD and GRM families on a panel with 2% missing genotypes and a
+    # duplicate of every 50th SNP, tracked (the corrected LD paths) and not
+    sm = bed.simulate_genotypes(600, 5000, seed=SEED + 5, missing_rate=0.02)
+    sm[:, 1::50] = sm[:, 0::50]
+    t0 = time.perf_counter()
+    fam = {}
+    for d in ("cpu", dev):
+        tr = from_dense(sm, keep_missing_info=True, device=d)
+        un = from_dense(sm, device=d)
+        fam[str(d)] = {
+            "ld_windowed corrected": ld_windowed(tr, 64,
+                                                 correct_missing=True),
+            "ld_windowed uncorrected": ld_windowed(tr, 64,
+                                                   correct_missing=False),
+            "ld_score corrected": ld_score(tr, 64),
+            "ld_score": ld_score(un, 64, chrom=chroms),
+            "ld_prune corrected": ld_prune(tr, 64),
+            "ld_prune": ld_prune(un, 64, chrom=chroms),
+            "pairwise_nonmissing": pairwise_nonmissing(tr).cpu().numpy(),
+            "grm_yang": grm_yang(un).cpu().numpy(),
+            "dominance_grm": dominance_grm(tr).cpu().numpy(),
+            "grm_blocked": grm_blocked(sm, row_block=512, device=d),
+            "ld_blocked": ld_blocked(tr, row_block=1024)}
+    fc, fg = fam["cpu"], fam[str(dev)]
+    equal = {k: bool(np.array_equal(fg[k], fc[k])) for k in fc
+             if fc[k].dtype in (np.bool_, np.int32)}
+    rels = {k: float(np.abs(fg[k] - fc[k]).max() / np.abs(fc[k]).max())
+            for k in fc if k not in equal}
+    pruned = int((~fc["ld_prune"]).sum())
+    log(f"check missing panel GPU vs CPU ({time.perf_counter() - t0:.3f} s): "
+        + " ".join(f"{k} equal={v}" for k, v in equal.items()) + " "
+        + " ".join(f"{k} rel={v:.3g}" for k, v in rels.items())
+        + f"; ld_prune drops {pruned}")
+    check(all(equal.values()) and all(v <= SMALL_RTOL for v in rels.values())
+          and pruned >= 100,
+          "LD/GRM families disagree between the GPU and the CPU paths")
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[k],

@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # other names carry their mode.
 LAUNCHES = {"tall_dgemm": 0, "tall_dgemm_cv": 0, "tall_dgemm_bf16": 0,
             "tall_dgemm_f32": 0, "wide_dgemm_split": 0, "wide_dgemm_f32": 0,
-            "wide_dgemm_bf16": 0, "wide_dgemm_hilo": 0, "crossprod": 0}
+            "wide_dgemm_bf16": 0, "wide_dgemm_hilo": 0, "crossprod": 0,
+            "crossprod_rect": 0, "crossprod_tri": 0, "crossprod_weighted": 0}
 TALL_RHS = {"split": 0, "f32": 0, "bf16": 1}            # B as given / bf16(B)
 WIDE_RHS = {"split": 0, "f32": 0, "bf16": 1, "hilo": 2}
 
@@ -117,6 +118,12 @@ def _load():
             lib.mx_wide_dgemm.restype = i32
             lib.mx_crossprod.argtypes = [vp, i32, i32, vp, vp]
             lib.mx_crossprod.restype = i32
+            lib.mx_crossprod_rect.argtypes = [vp, i32, vp, i32, i32, i32, vp,
+                                              vp]
+            lib.mx_crossprod_rect.restype = i32
+            lib.mx_crossprod_weighted.argtypes = [vp, i32, i32, vp, i32, vp,
+                                                  vp]
+            lib.mx_crossprod_weighted.restype = i32
             _lib = lib
     return _lib
 
@@ -137,6 +144,7 @@ def _raise_if(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
+CROSSPROD_TILE = 64      # output tile edge of csrc/crossprod.cu
 TALL_WARPS_PER_SM = 128  # launched warps per SM the contraction split aims at
 WIDE_BLOCKS_PER_SM = 8   # launched wide blocks per SM the split aims at
 
@@ -243,4 +251,54 @@ def crossprod(zq: torch.Tensor) -> torch.Tensor:
     LAUNCHES["crossprod"] += 1
     _raise_if(lib.mx_crossprod(_ptr(zq), rows, kw, _ptr(out),
                                ctypes.c_void_p(stream)), "crossprod")
+    return out
+
+
+def _rect(za: torch.Tensor, zb: torch.Tensor, upper: bool, name: str):
+    lib = _load()
+    _check(za, "za", torch.int32, 2)
+    _check(zb, "zb", torch.int32, 2)
+    (ra, kw), (rb, kwb) = za.shape, zb.shape
+    if kw != kwb or za.device != zb.device:
+        raise ValueError(f"{name}: words {tuple(za.shape)} and "
+                         f"{tuple(zb.shape)} do not pair")
+    out = torch.empty((ra, rb), dtype=torch.int32, device=za.device)
+    stream = torch.cuda.current_stream(za.device).cuda_stream
+    LAUNCHES[name] += 1
+    _raise_if(lib.mx_crossprod_rect(_ptr(za), ra, _ptr(zb), rb, kw, int(upper),
+                                    _ptr(out), ctypes.c_void_p(stream)), name)
+    return out
+
+
+def crossprod_rect(za: torch.Tensor, zb: torch.Tensor) -> torch.Tensor:
+    """B8: exact int32 decode(za) decode(zb)^T, [ra, rb]."""
+    return _rect(za, zb, False, "crossprod_rect")
+
+
+def crossprod_tri(zq: torch.Tensor) -> torch.Tensor:
+    """B12: decode(zq) decode(zq)^T [rows, rows] on the CROSSPROD_TILE tiles
+    that touch or lie above the diagonal; the tiles wholly below it are left
+    unwritten for the caller's mirror merge."""
+    return _rect(zq, zq, True, "crossprod_tri")
+
+
+def crossprod_weighted(zq: torch.Tensor, w: torch.Tensor,
+                       triangle: bool = True) -> torch.Tensor:
+    """B9: f32 decode(zq) diag(w) decode(zq)^T [rows, rows]; ``w`` f32
+    [16, kw] plane-major.  ``triangle`` walks the upper tile pairs and
+    mirrors; otherwise every tile is computed."""
+    lib = _load()
+    _check(zq, "zq", torch.int32, 2)
+    _check(w, "w", torch.float32, 2)
+    rows, kw = zq.shape
+    if tuple(w.shape) != (16, kw) or w.device != zq.device:
+        raise ValueError(f"crossprod_weighted: w {tuple(w.shape)} must be "
+                         f"[16, {kw}] on {zq.device}")
+    out = torch.empty((rows, rows), dtype=torch.float32, device=zq.device)
+    stream = torch.cuda.current_stream(zq.device).cuda_stream
+    LAUNCHES["crossprod_weighted"] += 1
+    _raise_if(lib.mx_crossprod_weighted(_ptr(zq), rows, kw, _ptr(w),
+                                        int(not triangle), _ptr(out),
+                                        ctypes.c_void_p(stream)),
+              "crossprod_weighted")
     return out

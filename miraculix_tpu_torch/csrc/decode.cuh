@@ -1,11 +1,20 @@
-// Genotype decode, RHS rounding and the split reduction shared by the
-// packed-product kernels.
+// Genotype decode, RHS rounding, the split reduction and the upper tile-pair
+// walk shared by the packed-product kernels.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace mx {
+
+// the upper tile pair (bi <= bj) of linear index p = bj*(bj+1)/2 + bi
+__device__ __forceinline__ void upper_pair(long long p, int& bi, int& bj) {
+  bj = (int)((sqrt(8.0 * (double)p + 1.0) - 1.0) * 0.5);
+  while ((long long)bj * (bj + 1) / 2 > p) --bj;
+  while ((long long)(bj + 1) * (bj + 2) / 2 <= p) ++bj;
+  bi = (int)(p - (long long)bj * (bj + 1) / 2);
+}
 
 // (w >> 2m) & 3 as an exact float: 2^23 + g has the bit pattern
 // 0x4B000000 | g, so subtracting 2^23 leaves g (no int->float convert)

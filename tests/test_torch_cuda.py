@@ -16,7 +16,9 @@ from miraculix_tpu_torch.ops.common import decode_planar16  # noqa: E402
 from miraculix_tpu_torch.ops.dgemm import (  # noqa: E402
     packed_matmul_tall, packed_matmul_tall_plain, rhs_values)
 from miraculix_tpu_torch.ops.grm import (  # noqa: E402
-    packed_crossprod, packed_crossprod_plain)
+    packed_crossprod, packed_crossprod_plain, packed_crossprod_rect,
+    packed_crossprod_rect_plain, packed_crossprod_weighted,
+    packed_crossprod_weighted_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +105,55 @@ def test_wide_dgemm_matches_plain(dev, rows, kw, cols, n, rhs):
 def test_crossprod_matches_plain(dev, rows, kw):
     zq = _words(np.random.default_rng(rows * kw), rows, kw).to(dev)
     assert torch.equal(packed_crossprod(zq), packed_crossprod_plain(zq))
+
+
+@pytest.mark.parametrize("ra,rb,kw", [(64, 64, 16), (300, 700, 37),
+                                      (65, 1, 17), (1, 129, 5),
+                                      (513, 200, 128)])
+def test_crossprod_rect_matches_plain(dev, ra, rb, kw):
+    """B8: ra != rb, rows off the 64-row tile, kw off the 16-word step."""
+    rng = np.random.default_rng(ra * rb + kw)
+    za = _words(rng, ra, kw).to(dev)
+    zb = _words(rng, rb, kw).to(dev)
+    got = packed_crossprod_rect(za, zb)
+    assert got.shape == (ra, rb)
+    assert torch.equal(got, packed_crossprod_rect_plain(za, zb))
+    # triangle=False: the same kernel on (zq, zq)
+    assert torch.equal(packed_crossprod(za, triangle=False),
+                       packed_crossprod_plain(za))
+
+
+@pytest.mark.parametrize("rows,kw", [(64, 16), (65, 17), (200, 33),
+                                     (513, 128), (1, 1)])
+def test_crossprod_tri_matches_k3(dev, rows, kw):
+    """B12 (masked grid + mirror merge) bit-equal to K3 and to plain."""
+    zq = _words(np.random.default_rng(rows + kw), rows, kw).to(dev)
+    got = packed_crossprod(zq, wrap=False)
+    assert torch.equal(got, packed_crossprod(zq))
+    assert torch.equal(got, packed_crossprod_plain(zq))
+
+
+@pytest.mark.parametrize("rows,kw,snps", [(64, 16, 256), (65, 17, 270),
+                                          (200, 33, 500), (513, 128, 2048),
+                                          (1, 5, 3)])
+@pytest.mark.parametrize("triangle", [True, False])
+def test_crossprod_weighted_matches_plain(dev, rows, kw, snps, triangle):
+    """B9 against its f64 plain version, each output's error bounded by its
+    own sum of |terms| (all terms are >= 0 here, so that is the output);
+    the plain product with w rounded once to bf16 reads above the limit."""
+    rng = np.random.default_rng(rows * kw + triangle)
+    zq = _words(rng, rows, kw).to(dev)
+    w = torch.as_tensor(rng.uniform(0.01, 3.0, snps), dtype=torch.float32,
+                        device=dev)
+    got = packed_crossprod_weighted(zq, w, triangle=triangle)
+    want = packed_crossprod_weighted_plain(zq, w).double()
+    control = packed_crossprod_weighted_plain(
+        zq, w.to(torch.bfloat16).to(torch.float32)).double()
+
+    def rel(x):
+        return float(((x - want).abs() / want.clamp(min=1e-30)).max())
+    assert got.shape == (rows, rows)
+    assert torch.equal(got, got.T)
+    assert rel(got.double()) <= 4e-6
+    if rows > 1:   # one output of a 3-term sum may land on bf16 exactly
+        assert rel(control) > 4e-6

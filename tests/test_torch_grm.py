@@ -66,10 +66,16 @@ def test_grm_diag_and_missing_paths():
     g = bed.simulate_genotypes(90, 300, seed=9, missing_rate=0.05)
     port = mt.from_dense(g, device=CPU)
     tracked = mt.from_dense(g, keep_missing_info=True, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         mt.grm(tracked)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # as the reference: pair denominators need a panel that tracks missing
+    # info (ValueError); on one that does they need ops/sparse
+    with pytest.raises(ValueError, match="keep_missing_info"):
         mt.grm(port, pair_denominator=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        mt.grm(tracked, pair_denominator=True)
+    with pytest.raises(ValueError, match="keep_missing_info"):
+        mt.grm(port, correct_missing=True)
     np.testing.assert_array_equal(mt.grm(tracked, correct_missing=False),
                                   mt.grm(port))
 
