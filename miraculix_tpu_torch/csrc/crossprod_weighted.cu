@@ -17,12 +17,15 @@
 // are one per 16*KW FMAs.
 //
 // Bound on H100: f32 FMA issue on the CUDA cores (16*kw FMAs per output
-// pair); the tensor-core form, three bf16 passes, is later work.  Design,
-// as K3 (crossprod.cu): 64 x 64 output tiles, 256 threads with 4 x 4 outputs
-// each; the blocks walk the upper tile pairs and mirror in the kernel, or
-// the full grid when `full` is set.  Per step each thread loads one word of
-// each side and expands its 16 genotypes into shared memory as floats, the
-// partner side times its weight.
+// pair); the tensor-core form, three bf16 passes, is later work.  Design:
+// 64 x 64 output tiles as K3's (crossprod.cu); the blocks walk the upper
+// tile pairs and mirror in the kernel, or the full grid when `full` is set.
+// Per step each thread loads two words of each side and expands their 16
+// genotypes into shared memory as floats, the partner side times its
+// weight.  128 threads with 4 x 8 outputs each: per product step a warp
+// reads one float4 of its rows and two of its columns (the 8 columns are two
+// runs of 4, 32 apart, so each read is one shared-memory wavefront) for 32
+// FMAs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,7 +37,7 @@ namespace {
 constexpr int TILE = 64;        // output tile edge
 constexpr int KW = 4;           // packed words per shared-memory step
 constexpr int KS = 16 * KW;     // products per output per step
-constexpr int THREADS = 256;    // = TILE * KW: one word of each side a thread
+constexpr int THREADS = 128;    // 16 x 8 threads; TILE * KW / 2 words a side
 
 __global__ void __launch_bounds__(THREADS)
 crossprod_weighted_kernel(const uint32_t* __restrict__ zq, int rows, int kw,
@@ -51,49 +54,55 @@ crossprod_weighted_kernel(const uint32_t* __restrict__ zq, int rows, int kw,
   }
   const bool mirror = !full && bi != bj;
   const int row0 = bi * TILE, col0 = bj * TILE;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int lr = threadIdx.x % TILE, lk = threadIdx.x / TILE;
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const int lr = threadIdx.x % TILE, lk = threadIdx.x / TILE;  // lk: 0, 1
 
-  double acc[4][4];
+  double acc[4][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0;
 
   for (int k0 = 0; k0 < kw; k0 += KW) {
-    const int k = k0 + lk;
-    const bool kin = k < kw;
-    const uint32_t wa = (kin && row0 + lr < rows)
-                            ? __ldg(zq + (long long)(row0 + lr) * kw + k) : 0u;
-    const uint32_t wb = (kin && col0 + lr < rows)
-                            ? __ldg(zq + (long long)(col0 + lr) * kw + k) : 0u;
 #pragma unroll
-    for (int m = 0; m < 16; ++m) {
-      const float wt = kin ? __ldg(w + (long long)m * kw + k) : 0.f;
-      as[m * KW + lk][lr] = mx::geno(wa, m);
-      bs[m * KW + lk][lr] = mx::geno(wb, m) * wt;
+    for (int h = 0; h < KW; h += 2) {      // words lk and lk + 2 of the step
+      const int kk = lk + h, k = k0 + kk;
+      const bool kin = k < kw;
+      const uint32_t wa =
+          (kin && row0 + lr < rows) ? __ldg(zq + (long long)(row0 + lr) * kw + k)
+                                    : 0u;
+      const uint32_t wb =
+          (kin && col0 + lr < rows) ? __ldg(zq + (long long)(col0 + lr) * kw + k)
+                                    : 0u;
+#pragma unroll
+      for (int m = 0; m < 16; ++m) {
+        const float wt = kin ? __ldg(w + (long long)m * kw + k) : 0.f;
+        as[m * KW + kk][lr] = mx::geno(wa, m);
+        bs[m * KW + kk][lr] = mx::geno(wb, m) * wt;
+      }
     }
     __syncthreads();
-    float part[4][4];
+    float part[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) part[i][j] = 0.f;
-#pragma unroll 16
+      for (int j = 0; j < 8; ++j) part[i][j] = 0.f;
+#pragma unroll 8
     for (int s = 0; s < KS; ++s) {
       const float4 a = *reinterpret_cast<const float4*>(&as[s][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&bs[s][tx * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&bs[s][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&bs[s][32 + tx * 4]);
       const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) part[i][j] = fmaf(av[i], bv[j], part[i][j]);
+        for (int j = 0; j < 8; ++j) part[i][j] = fmaf(av[i], bv[j], part[i][j]);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += (double)part[i][j];
+      for (int j = 0; j < 8; ++j) acc[i][j] += (double)part[i][j];
     __syncthreads();
   }
 
@@ -101,8 +110,8 @@ crossprod_weighted_kernel(const uint32_t* __restrict__ zq, int rows, int kw,
   for (int i = 0; i < 4; ++i) {
     const int r = row0 + ty * 4 + i;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx * 4 + j;
+    for (int j = 0; j < 8; ++j) {
+      const int c = col0 + (j < 4 ? 0 : 28) + tx * 4 + j;
       if (r < rows && c < rows) {
         const float v = (float)acc[i][j];
         out[(long long)r * rows + c] = v;
