@@ -525,9 +525,18 @@ def main() -> int:
     cov = grng.standard_normal((N_INDIV, 3))
     yb = (y > np.median(y)).astype(np.float64)
     chrom = np.repeat(np.arange(4), N_SNPS // 4)
+    per_fn = {}   # function -> its launches on a main path
+
+    def counted(name, fn):
+        before = dict(_kernels.LAUNCHES)
+        out, secs = sync_time(fn)
+        per_fn[name] = {k: v - before[k] for k, v in
+                        _kernels.LAUNCHES.items() if v - before[k]}
+        log(f"phase main {name}: {secs:.3f} s launches={per_fn[name]}")
+        return out
+
     _kernels.reset_launch_counts()
     scans = {}
-    per_scan = {}
     for name, fn in (
             ("gwas_linear", lambda: gwas_linear(gm, y, covariates=cov)),
             ("gwas_logistic", lambda: gwas_logistic(gm, yb, covariates=cov)),
@@ -537,19 +546,13 @@ def main() -> int:
             ("gwas_mixed_loco", lambda: gwas_mixed_loco(
                 gm, y, chrom, covariates=cov, n_gamma_snps=32, tol=GWAS_TOL,
                 maxiter=GWAS_MAXITER))):
-        before = dict(_kernels.LAUNCHES)
-        scans[name], secs = sync_time(fn)
-        per_scan[name] = {k: v - before[k] for k, v in
-                          _kernels.LAUNCHES.items() if v - before[k]}
-        r = scans[name]
-        extra = ""
+        r = scans[name] = counted(name, fn)
         if hasattr(r, "gamma"):
-            extra = (f" gamma={r.gamma:.6g} cg_iterations={r.cg_iterations}"
-                     f" residual_norm={np.array2string(r.residual_norm)}")
-        log(f"phase main {name}: {secs:.3f} s{extra} launches="
-            f"{per_scan[name]}")
+            log(f"  {name}: gamma={r.gamma:.6g} cg_iterations="
+                f"{r.cg_iterations} residual_norm="
+                f"{np.array2string(r.residual_norm)}")
     take_counts("gwas")
-    check(per_scan["gwas_mixed"].get("wide_dgemm_split", 0) > 0,
+    check(per_fn["gwas_mixed"].get("wide_dgemm_split", 0) > 0,
           "gwas_mixed did not launch the wide kernel")
     lin = scans["gwas_linear"]
     for name, r in scans.items():
@@ -612,16 +615,6 @@ def main() -> int:
           and bool(torch.isfinite(c32).all()), "packed_matmul ncol=32")
     take_counts("tiers")
     del c32, b32
-
-    per_fn = {}
-
-    def counted(name, fn):
-        before = dict(_kernels.LAUNCHES)
-        out, secs = sync_time(fn)
-        per_fn[name] = {k: v - before[k] for k, v in
-                        _kernels.LAUNCHES.items() if v - before[k]}
-        log(f"phase main {name}: {secs:.3f} s launches={per_fn[name]}")
-        return out
 
     # -- 5. the LD family, counted -----------------------------------------
     # SNP 8k+1 := SNP 8k: 8,192 adjacent exact duplicates (r = 1) in an HWE

@@ -16,7 +16,7 @@
 // as one long f32 sum of positive terms would (~1e-5 relative); the f64 adds
 // are one per 16*KW FMAs.
 //
-// Bound on H100: f32 FMA issue on the CUDA cores (16*kw FMAs per output
+// Bound on H100: the f32 FMA rate of the CUDA cores (16*kw FMAs per output
 // pair); the tensor-core form, three bf16 passes, is later work.  Design:
 // 64 x 64 output tiles as K3's (crossprod.cu); the blocks walk the upper
 // tile pairs and mirror in the kernel, or the full grid when `full` is set.

@@ -30,6 +30,10 @@ from .dgemm import dgemm
 _A8 = "needs ops/sparse, not ported yet (ROADMAP A8)"
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().astype(np.float64)
+
+
 def _check_capacity(kw: int) -> None:
     if 4 * 16 * kw >= 2 ** 31:
         raise ValueError(
@@ -107,10 +111,9 @@ def _weights(w, kw: int, device) -> torch.Tensor:
     return wmat.reshape(16, kw)
 
 
-def packed_crossprod_weighted_plain(zq: torch.Tensor, w,
-                                    triangle: bool = True) -> torch.Tensor:
+def packed_crossprod_weighted_plain(zq: torch.Tensor, w) -> torch.Tensor:
     """Plain version of :func:`packed_crossprod_weighted`: (d w) d^T in
-    float64, cast to f32 (``triangle`` changes nothing here)."""
+    float64, cast to f32."""
     wmat = _weights(w, zq.shape[1], zq.device).to(torch.float64)
     d = decode_planar16(zq, torch.float64)
     return ((d * wmat.reshape(1, -1)) @ d.T).to(torch.float32)
@@ -124,7 +127,7 @@ def packed_crossprod_weighted(zq: torch.Tensor, w,
     SNP order; padded SNPs get weight 0.  CUDA tensors launch B9 on the
     upper tile pairs with its mirror (``triangle=False``: every tile)."""
     if not zq.is_cuda:
-        return packed_crossprod_weighted_plain(zq, w, triangle)
+        return packed_crossprod_weighted_plain(zq, w)
     return _kernels.crossprod_weighted(
         zq.contiguous(), _weights(w, zq.shape[1], zq.device), triangle)
 
@@ -332,7 +335,7 @@ class _Band:
     def __init__(self, g: GenoMatrix, window: int, row_block: int,
                  chrom=None):
         snps, n = g.snps, g.indiv
-        self.zq, self.snps, self.n, self.window = g.zq_t, snps, n, window
+        self.zq = g.zq_t
         self.rb = max(512, (row_block // 512) * 512)
         self.wb = -(-window // 512) * 512
         self.nb = -(-snps // self.rb)
@@ -380,10 +383,6 @@ def _missing_band(g: GenoMatrix, correct_missing) -> bool:
         raise ValueError("correct_missing requires a panel built with "
                          "keep_missing_info=True")
     return correct_missing
-
-
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy().astype(np.float64)
 
 
 def ld_windowed(g: GenoMatrix, window: int, row_block: int = 4096,
