@@ -406,11 +406,7 @@ def ld_windowed(g: GenoMatrix, window: int, row_block: int = 4096,
     if window < 1:
         raise ValueError("window must be >= 1")
     correct_missing = _missing_band(g, correct_missing)
-    if chrom is not None:
-        chrom = np.asarray(chrom)
-        if chrom.shape[0] != snps:
-            raise ValueError(f"chrom has {chrom.shape[0]} labels for "
-                             f"{snps} SNPs")
+    code = _chrom_codes(chrom, snps)
     if out is None:
         out = np.zeros((snps, window), dtype=np.float32)
     bd = _Band(g, window, row_block)
@@ -430,9 +426,7 @@ def ld_windowed(g: GenoMatrix, window: int, row_block: int = 4096,
         nrow = r1 - r0
         ahead = r0 + np.arange(nrow)[:, None] + 1 + np.arange(window)[None, :]
         partner = np.minimum(ahead, snps - 1)
-        valid = ahead < snps
-        if chrom is not None:
-            valid &= chrom[partner] == chrom[r0:r1][:, None]
+        valid = (ahead < snps) & (code[partner] == code[r0:r1][:, None])
         zi, zj, fr, fc, sr, sc, _, _ = bd.args(i)
         if not correct_missing:
             band = _host(_ld_band_block(zi, zj, fr, fc, sr, sc, window,
@@ -511,12 +505,11 @@ def ld_score(g: GenoMatrix, window: int = 512, row_block: int = 4096,
     if adjusted:
         band -= (1.0 - band) / np.float32(n - 2)
         # out-of-panel and cross-chromosome partners stay exactly 0
-        ch = None if chrom is None else np.asarray(chrom)
+        code = _chrom_codes(chrom, snps)
         for d in range(window):
             lim = max(snps - d - 1, 0)
             band[lim:, d] = 0.0
-            if ch is not None and lim > 0:
-                band[:lim, d][ch[:lim] != ch[d + 1: d + 1 + lim]] = 0.0
+            band[:lim, d][code[:lim] != code[d + 1: d + 1 + lim]] = 0.0
     score = 1.0 + band.sum(axis=1, dtype=np.float64)
     for d in range(window):  # incoming pairs: band[s-d-1, d] contributes to s
         score[d + 1:] += band[: snps - d - 1, d]
@@ -579,32 +572,24 @@ def _ld_prune_greedy(offend: np.ndarray, maf, snps: int,
     return keep
 
 
-def _row_block_fn(zq: torch.Tensor, rb: int, device):
-    """Row-block slicer for the out-of-core loops: block i of ``rb`` packed
-    rows on ``device`` (from a device or host source), zero-padded."""
-    def block(i):
-        return _row_slab(zq, i * rb, (i + 1) * rb, device)
-    return block
-
-
 def _blocked_tiles(zq: torch.Tensor, count: int, rb: int, device, out,
                    finish):
     """Fill host ``out`` [count, count] with the upper tile pairs of
-    decode(zq) decode(zq)^T (B8 per pair) and their mirrors;
-    ``finish(tile, r0, r1, c0, c1)`` turns the int32 tile into the stored
-    values."""
+    decode(zq) decode(zq)^T (B8 per pair) and their mirrors, moving one
+    pair of ``rb``-row blocks of ``zq`` (a device or host source) to
+    ``device`` at a time; ``finish(tile, r0, r1, c0, c1)`` turns the int32
+    tile into the stored values."""
     nb = -(-zq.shape[0] // rb)
-    block = _row_block_fn(zq, rb, device)
     for i in range(nb):
         r0, r1 = i * rb, min((i + 1) * rb, count)
         if r0 >= count:
             break
-        zi = block(i)
+        zi = _row_slab(zq, r0, r0 + rb, device)
         for j in range(i, nb):
             c0, c1 = j * rb, min((j + 1) * rb, count)
             if c0 >= count:
                 break
-            zj = zi if j == i else block(j)
+            zj = zi if j == i else _row_slab(zq, c0, c0 + rb, device)
             tile = finish(packed_crossprod_rect(zi, zj).cpu().numpy()
                           [: r1 - r0, : c1 - c0], r0, r1, c0, c1)
             out[r0:r1, c0:c1] = tile
