@@ -134,8 +134,10 @@ crossprod_rect_kernel(const uint32_t* __restrict__ za, int ra,
   __shared__ __align__(16) int bs[4][KT][PAD];
   const int row0 = bi * TILE, col0 = bj * TILE;
   int acc[4][4];
-  tile_product(za, ra, zb, rb, kw, row0, col0, za == zb && bi == bj, as, bs,
-               acc);
+  // one expansion serves both sides only where both ranges are the same rows
+  // of one operand: two views of one buffer may end at different rows
+  tile_product(za, ra, zb, rb, kw, row0, col0,
+               za == zb && ra == rb && bi == bj, as, bs, acc);
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll

@@ -277,22 +277,21 @@ def _band_index(rb: int, window: int, device) -> torch.Tensor:
             + torch.arange(window, device=device)[None, :])
 
 
-def _ld_band_block(zi, zj, fr, fc_pad, sig_r, sig_pad, window: int, n: int):
+def _ld_band_block(zi, zj, fr, fc_pad, sig_r, sig_pad, code_pad, r0: int,
+                   window: int, n: int, snps: int):
     """One banded-LD row block on the device (no-missing path): rectangular
-    crossproduct (B8) -> rank-1 centering -> band gather -> sigma division;
-    returns the f32 [rb, window] band."""
+    crossproduct (B8) -> rank-1 centering -> band gather -> sigma division.
+    Returns the f32 [rb, window] band, 0 where the partner lies past the
+    panel or on another chromosome; that validity mask; and the partner
+    column of each entry."""
     m = packed_crossprod_rect(zi, zj).to(torch.float32)
     m -= ((4.0 * n) * fr)[:, None] * fc_pad[None, :]
-    lidx = _band_index(zi.shape[0], window, m.device)
-    band = torch.gather(m, 1, lidx)
-    return band / (sig_r[:, None] * sig_pad[lidx])
-
-
-def _band_valid(lidx, r0: int, snps: int, code_pad) -> torch.Tensor:
-    """Band entries whose partner lies in the panel and on the row's
-    chromosome."""
-    rb = lidx.shape[0]
-    return ((r0 + lidx) < snps) & (code_pad[:rb, None] == code_pad[lidx])
+    rb = zi.shape[0]
+    lidx = _band_index(rb, window, m.device)
+    valid = ((r0 + lidx) < snps) & (code_pad[:rb, None] == code_pad[lidx])
+    band = torch.gather(m, 1, lidx) / (sig_r[:, None] * sig_pad[lidx])
+    return torch.where(valid, band, torch.zeros((), device=m.device)), \
+        valid, lidx
 
 
 def _ld_score_block(zi, zj, fr, fc_pad, sig_r, sig_pad, code_pad, r0: int,
@@ -303,14 +302,13 @@ def _ld_score_block(zi, zj, fr, fc_pad, sig_r, sig_pad, code_pad, r0: int,
     of r^2 to its partner columns (one entry per position, no collision)
     and sums the columns, so it repeats bit for bit from run to run, which
     a CUDA ``index_add_`` would not."""
-    band = _ld_band_block(zi, zj, fr, fc_pad, sig_r, sig_pad, window, n)
+    band, valid, lidx = _ld_band_block(zi, zj, fr, fc_pad, sig_r, sig_pad,
+                                       code_pad, r0, window, n, snps)
     rb = band.shape[0]
     r2 = band * band
     if adjusted:
-        r2 = r2 - (1.0 - r2) / float(n - 2)
-    lidx = _band_index(rb, window, band.device)
-    r2 = torch.where(_band_valid(lidx, r0, snps, code_pad), r2,
-                     torch.zeros((), device=band.device))
+        r2 = torch.where(valid, r2 - (1.0 - r2) / float(n - 2),
+                         torch.zeros((), device=band.device))
     wide = torch.zeros((rb, rb + window), dtype=torch.float32,
                        device=band.device)
     return r2.sum(dim=1), wide.scatter_(1, lidx, r2).sum(dim=0)
@@ -320,10 +318,9 @@ def _ld_mask_block(zi, zj, fr, fc_pad, sig_r, sig_pad, code_pad, r0: int,
                    thr, window: int, n: int, snps: int):
     """One LD-prune row block on the device: banded r^2 above ``thr``,
     masked -> uint8 [rb, window] offender mask."""
-    band = _ld_band_block(zi, zj, fr, fc_pad, sig_r, sig_pad, window, n)
-    lidx = _band_index(band.shape[0], window, band.device)
-    return (_band_valid(lidx, r0, snps, code_pad)
-            & (band * band > thr)).to(torch.uint8)
+    band, valid, _ = _ld_band_block(zi, zj, fr, fc_pad, sig_r, sig_pad,
+                                    code_pad, r0, window, n, snps)
+    return (valid & (band * band > thr)).to(torch.uint8)
 
 
 class _Band:
@@ -406,12 +403,12 @@ def ld_windowed(g: GenoMatrix, window: int, row_block: int = 4096,
     if window < 1:
         raise ValueError("window must be >= 1")
     correct_missing = _missing_band(g, correct_missing)
-    code = _chrom_codes(chrom, snps)
     if out is None:
         out = np.zeros((snps, window), dtype=np.float32)
-    bd = _Band(g, window, row_block)
+    bd = _Band(g, window, row_block, chrom)
     rb, wb, f = bd.rb, bd.wb, bd.freq
     if correct_missing:
+        code = bd.code[:snps].cpu().numpy()
         # exact corrected variance: sum over called (z - 2f)^2 =
         # sum z^2 - 4f s + 4f^2 (n - missing count)
         ssum = _host(g.snp_sums())[:snps]
@@ -424,15 +421,14 @@ def ld_windowed(g: GenoMatrix, window: int, row_block: int = 4096,
     for i in range(bd.nb):
         r0, r1 = i * rb, min((i + 1) * rb, snps)
         nrow = r1 - r0
+        if not correct_missing:
+            band, _, _ = _ld_band_block(*bd.args(i), window, n, snps)
+            out[r0:r1] = band.cpu().numpy()[:nrow]
+            continue
+        zi, zj = bd.args(i)[:2]
         ahead = r0 + np.arange(nrow)[:, None] + 1 + np.arange(window)[None, :]
         partner = np.minimum(ahead, snps - 1)
         valid = (ahead < snps) & (code[partner] == code[r0:r1][:, None])
-        zi, zj, fr, fc, sr, sc, _, _ = bd.args(i)
-        if not correct_missing:
-            band = _host(_ld_band_block(zi, zj, fr, fc, sr, sc, window,
-                                        n))[:nrow]
-            out[r0:r1] = np.where(valid, band, 0.0).astype(np.float32)
-            continue
         tile = _host(packed_crossprod_rect(zi, zj))[:nrow]
         c1 = min(r0 + rb + window, snps) - r0   # valid partner columns
         tile[:, c1:] = 0.0
@@ -537,9 +533,7 @@ def ld_prune(g: GenoMatrix, window: int = 512, r2_threshold: float = 0.2,
         offend = np.empty((snps, window_c), np.uint8)
         for i in range(bd.nb):
             r0, r1 = i * bd.rb, min((i + 1) * bd.rb, snps)
-            zi, zj, fr, fc, sr, sc, code, _ = bd.args(i)
-            blk = _ld_mask_block(zi, zj, fr, fc, sr, sc, code, r0, thr,
-                                 window_c, g.indiv, snps)
+            blk = _ld_mask_block(*bd.args(i), thr, window_c, g.indiv, snps)
             offend[r0:r1] = blk.cpu().numpy()[: r1 - r0]
         return _ld_prune_greedy(offend > 0, maf, snps, window_c)
     band2 = ld_windowed(g, window=window, row_block=row_block, squared=True,

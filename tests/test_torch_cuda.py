@@ -123,6 +123,19 @@ def test_crossprod_rect_matches_plain(dev, ra, rb, kw):
                        packed_crossprod_plain(za))
 
 
+@pytest.mark.parametrize("ra,rb", [(300, 700), (700, 300), (65, 129),
+                                   (700, 700)])
+def test_crossprod_rect_row_views_of_one_buffer(dev, ra, rb):
+    """B8 on two row views that start at one address but end at different
+    rows (`.contiguous()` keeps the shared pointer): the diagonal tiles must
+    read each operand to its own end."""
+    z = _words(np.random.default_rng(ra + rb), 700, 37).to(dev)
+    za, zb = z[:ra], z[:rb]
+    assert za.data_ptr() == zb.data_ptr()
+    assert torch.equal(packed_crossprod_rect(za, zb),
+                       packed_crossprod_rect_plain(za, zb))
+
+
 @pytest.mark.parametrize("rows,kw", [(64, 16), (65, 17), (200, 33),
                                      (513, 128), (1, 1)])
 def test_crossprod_tri_matches_k3(dev, rows, kw):
