@@ -18,12 +18,21 @@ Builds the CUDA kernels of ``miraculix_tpu_torch/csrc`` and
    weights (error <= 4e-6 of each output).  Each dgemm and weighted check
    also reads a control, the plain product at the other grade (bf16(B)
    against B, bf16(w) against w), which must exceed the limit under the
-   same metric.  Each kernel is timed beside its plain version, one PyTorch
-   library call on the pre-decoded panel, and its bound on the card;
+   same metric.  The exact digit kernel of the f64 tier is held to its
+   plain version (exactly equal) at the three products the f64 paths
+   launch, with digits over [-64, 64].  Each kernel is timed beside its
+   plain version, one PyTorch library call on the pre-decoded panel, and
+   its bound on the card;
 2. runs the main GBLUP path at that size from the launch counters' zero:
    simulate -> write .bed -> ``from_bed`` on the GPU -> ``grm`` (diagonal
    checked against ``grm_diag``) -> simulated phenotypes -> ``gblup`` (CG
-   converged, g_hat correlated with the true breeding values);
+   converged, g_hat correlated with the true breeding values); then, each
+   from the counters' zero, the f64 tier: ``gblup(solver="refined",
+   tol=1e-10)`` and ``grm_matvec_f64`` on 12 columns (converged, g_hat
+   within 1e-3 of the f32 run's, the matvec within 1e-12 of a float64
+   product over decoded blocks), ``gblup(solver="dense")`` (g_hat within
+   1e-3 of the refined one) and ``dgemm(precision="f64")`` 'n' and 't' at 12
+   columns (within 1e-12 of the float64 product);
 3. runs the main GWAS path on the same panel from the counters' zero:
    ``gwas_linear`` (checked against float64 regressions on 256 SNPs),
    ``gwas_logistic``, ``gwas_mixed`` (65 CG columns: the wide kernel) and
@@ -38,10 +47,18 @@ Builds the CUDA kernels of ``miraculix_tpu_torch/csrc`` and
    scores, the band and the blocked matrix agree with ``ld``);
 6. runs the GRM family at 16,384 animals from the counters' zero:
    ``grm_blocked`` against ``grm``, the masked-grid crossproduct against
-   K3, ``grm_yang`` against its float64 definition on 256 rows;
+   K3, ``grm_yang`` against its float64 definition on 256 rows; then, from
+   the counters' zero, the missing-aware family on the panel with 0.1% of
+   its calls set missing (``from_dense(keep_missing_info=True)``):
+   ``grm()`` (corrected by default), ``grm(pair_denominator=True)``,
+   ``grm_yang()`` and ``ld()`` on the first chromosome, rows 0-255 against
+   their float64 mean-imputed definitions (1e-4 of max |want|), the LD
+   diagonal 1 within 1e-6; the host D D^T and the segment sum timed apart;
 7. checks the GPU pipeline against the port's CPU path on small panels
-   (GBLUP, GRM, the four scans; the LD and GRM families on a panel with 2%
-   missing genotypes).
+   (GBLUP cg/refined/dense, GRM, the four scans, ``sparse_times_geno``; the
+   f64 dgemm, the LD and GRM families with and without the missing
+   corrections on a panel with 2% missing genotypes), at 1e-3, or 1e-12
+   for the f64 tier.
 
 Earlier lines report per-phase seconds, errors, launch counts, the card's
 name and power limit, and one JSON object of kernel results; the last line
@@ -59,6 +76,8 @@ import time
 
 N_SNPS, N_INDIV = 65536, 16384   # miraculix_tpu/benchmark.py "many_indiv"
 SEED = 0
+MISSING_RATE = 0.001  # the missing-aware phase: a 99.9% call rate
+F64_RTOL = 1e-12      # the f64 tier vs float64 products, relative to max
 KERNEL_RTOL = 1e-5    # tall kernel vs plain, relative to max |plain|
 # wide kernel vs plain, relative to each output's sum of |terms|: on the
 # H100 the sound instances read <= 4.2e-7 and the other-grade controls
@@ -105,19 +124,23 @@ SOURCES = {  # kernel -> (source, TPU kernel it replaces)
                       "miraculix_tpu/ops/grm.py:85"),
     "crossprod_weighted": ("miraculix_tpu_torch/csrc/crossprod_weighted.cu",
                            "miraculix_tpu/ops/grm.py:450"),
+    "matmul_int8": ("miraculix_tpu_torch/csrc/matmul_int8.cu",
+                    "miraculix_tpu/ops/dgemm.py:625"),
 }
 # the unit and passes that bound each kernel: one rule for the products,
 # the bf16 tensor-core passes that the tier's grade needs (genotypes are
 # exact in bf16; B takes one bf16 piece at the bf16 tier, hi + lo at the
 # split tier, three pieces for its 24 bits at the f32 tier).  The split and
 # f32 names are one kernel instance (B as given) at two tiers' bounds.  The
-# integer crossproducts are one int8 pass; the weighted one is f32 grade.
+# integer crossproducts and the exact digit product are one int8 pass; the
+# weighted one is f32 grade.
 UNIT = {"tall_dgemm": ("bf16", 2), "tall_dgemm_cv": ("bf16", 2),
         "tall_dgemm_bf16": ("bf16", 1), "tall_dgemm_f32": ("bf16", 3),
         "wide_dgemm_split": ("bf16", 2), "wide_dgemm_hilo": ("bf16", 2),
         "wide_dgemm_bf16": ("bf16", 1), "wide_dgemm_f32": ("bf16", 3),
         "crossprod": ("int8", 1), "crossprod_rect": ("int8", 1),
-        "crossprod_tri": ("int8", 1), "crossprod_weighted": ("bf16", 3)}
+        "crossprod_tri": ("int8", 1), "crossprod_weighted": ("bf16", 3),
+        "matmul_int8": ("int8", 1)}
 
 
 class CheckFailed(Exception):
@@ -159,20 +182,25 @@ def main() -> int:
     import numpy as np
 
     from miraculix_tpu_torch import _kernels, gblup
-    from miraculix_tpu_torch import (dominance_grm, from_bed, from_dense, grm,
-                                     grm_blocked, grm_cg_solve, grm_diag,
+    from miraculix_tpu_torch import (dgemm, dominance_grm, from_bed,
+                                     from_dense, grm, grm_blocked,
+                                     grm_cg_solve, grm_diag, grm_matvec_f64,
                                      grm_yang, gwas_linear, gwas_logistic,
                                      gwas_mixed, gwas_mixed_loco, ld,
                                      ld_blocked, ld_prune, ld_score,
                                      ld_windowed, packed_crossprod,
                                      packed_crossprod_rect, packed_matmul,
-                                     pairwise_nonmissing, subset_snps)
+                                     pairwise_nonmissing, sparse_times_geno,
+                                     subset_snps)
     from miraculix_tpu_torch.io import bed
     from miraculix_tpu_torch.ops.common import decode_planar16
-    from miraculix_tpu_torch.ops.dgemm import (packed_matmul_plain,
+    from miraculix_tpu_torch.ops.dgemm import (packed_matmul_int8,
+                                               packed_matmul_int8_plain,
+                                               packed_matmul_plain,
                                                packed_matmul_tall,
                                                packed_matmul_tall_plain)
-    from miraculix_tpu_torch.ops.grm import (_ld_prune_greedy,
+    from miraculix_tpu_torch.ops.grm import (_ddt_dense, _ld_prune_greedy,
+                                             _missing_d_csr,
                                              packed_crossprod_plain,
                                              packed_crossprod_rect_plain,
                                              packed_crossprod_weighted,
@@ -209,6 +237,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
+    t_start = time.perf_counter()
     t0 = time.perf_counter()
     lib = _kernels.build()
     log(f"phase build: {time.perf_counter() - t0:.3f} s -> {lib}")
@@ -471,7 +500,39 @@ def main() -> int:
             lambda: packed_crossprod_weighted_plain(zn, wy),
             lambda: dw @ dec.T, tri_macs,
             4 * (zn.numel() + 16 * kw + rows * rows), 2))
-        del dec, dw, gm, zn
+        del dec, dw
+        torch.cuda.empty_cache()
+
+        # B10 at the f64 paths' products: the 't' and 'n' products of
+        # grm_matvec_f64 at 12 columns (8 digits each: 96 digit columns)
+        # and the 'n' product at one column (8); digits over [-64, 64] with
+        # both ends in every plane (the JSON keeps the first case)
+        for label, zq, cols, ncol in (("n", zn, N_SNPS, 96),
+                                      ("t", gm.zq_t, N_INDIV, 96),
+                                      ("n", zn, N_SNPS, 8)):
+            d = torch.as_tensor(rng.integers(-64, 65, size=(cols, ncol)),
+                                dtype=torch.int8, device=dev)
+            d[::7] = 64
+            d[3::7] = -64
+            exact("matmul_int8", f"{label} ncol={ncol}",
+                  packed_matmul_int8(zq, d), packed_matmul_int8_plain(zq, d))
+            d8 = decode_planar16(zq, torch.int8)[:, :cols]
+            dpad = torch.zeros((cols, -(-ncol // 8) * 8), dtype=torch.int8,
+                               device=dev)
+            dpad[:, :ncol] = d
+            dpad = dpad.T.contiguous().T    # column-major, as _int_mm takes
+            t = timings("matmul_int8", f"{label} ncol={ncol}",
+                        lambda: packed_matmul_int8(zq, d),
+                        lambda: packed_matmul_int8_plain(zq, d),
+                        lambda: torch._int_mm(d8, dpad),
+                        zq.shape[0] * cols * ncol,
+                        4 * zq.numel() + cols * ncol + 4 * zq.shape[0] * ncol,
+                        10)
+            if "ms" not in results["matmul_int8"]:
+                record("matmul_int8", 0.0, t)
+            del d, d8, dpad
+            torch.cuda.empty_cache()
+        del gm, zn
         torch.cuda.empty_cache()
         check(not disagree, f"kernels disagree with their plain versions "
               f"(or a control reads within the limit): {disagree}")
@@ -517,14 +578,6 @@ def main() -> int:
     check(all(counts[k] > 0 for k in ("tall_dgemm", "tall_dgemm_cv",
                                       "crossprod")),
           "a kernel of the GBLUP path was never launched")
-
-    # -- 3. the main GWAS path, counted ------------------------------------
-    qtl = np.random.default_rng(SEED).choice(N_SNPS, size=N_QTL,
-                                             replace=False)
-    grng = np.random.default_rng(SEED + 2)
-    cov = grng.standard_normal((N_INDIV, 3))
-    yb = (y > np.median(y)).astype(np.float64)
-    chrom = np.repeat(np.arange(4), N_SNPS // 4)
     per_fn = {}   # function -> its launches on a main path
 
     def counted(name, fn):
@@ -534,6 +587,88 @@ def main() -> int:
                         _kernels.LAUNCHES.items() if v - before[k]}
         log(f"phase main {name}: {secs:.3f} s launches={per_fn[name]}")
         return out
+
+    # -- 2b. the f64 tier, counted: refined and dense GBLUP, f64 dgemm ------
+    frng = np.random.default_rng(SEED + 7)
+    v12 = frng.standard_normal((N_INDIV, 12))
+    bn12 = frng.standard_normal((N_SNPS, 12))
+    bt12 = frng.standard_normal((N_INDIV, 12))
+    _kernels.reset_launch_counts()
+    res_rf = counted("gblup refined", lambda: gblup.gblup(
+        gm, y, h2=0.5, n_pcs=10, solver="refined", tol=1e-10))
+    gv = counted("grm_matvec_f64", lambda: grm_matvec_f64(gm, v12))
+    log(f"  gblup refined: cg_iterations={res_rf.cg_iterations} "
+        f"converged={res_rf.converged}")
+    counts = take_counts("gblup refined")
+    check(counts["matmul_int8"] > 0 and counts["tall_dgemm_cv"] > 0,
+          "refined GBLUP did not launch the digit and tall kernels")
+    _kernels.reset_launch_counts()
+    res_dn = counted("gblup dense", lambda: gblup.gblup(
+        gm, y, h2=0.5, n_pcs=10, solver="dense"))
+    take_counts("gblup dense")
+    _kernels.reset_launch_counts()
+    cn = counted("dgemm f64 n", lambda: dgemm(gm, bn12, trans="n",
+                                              precision="f64"))
+    ct = counted("dgemm f64 t", lambda: dgemm(gm, bt12, trans="t",
+                                              precision="f64"))
+    counts = take_counts("dgemm f64")
+    check(counts["matmul_int8"] == 2, "f64 dgemm: one digit launch each")
+    # float64 references over decoded 2048-row blocks of zq_n, centered by
+    # 2f: pass 1 Zc^T v, Zc^T bt and Zc bn; pass 2 Zc (Zc^T v)
+    t0 = time.perf_counter()
+    f2 = 2.0 * gm.freq.double()
+    vt, bnt, btt = (torch.as_tensor(a, device=dev) for a in (v12, bn12, bt12))
+    zv = torch.zeros((N_SNPS, 12), dtype=torch.float64, device=dev)
+    want_t = torch.zeros_like(zv)
+    want_n, want_gv = [], []
+    blocks = [(r0, min(r0 + 2048, N_INDIV)) for r0 in range(0, N_INDIV, 2048)]
+
+    def zc_block(r0, r1):
+        return decode_planar16(gm.zq_n[r0:r1], torch.float64)[:, :N_SNPS] - f2
+
+    for r0, r1 in blocks:
+        zc = zc_block(r0, r1)
+        zv += zc.T @ vt[r0:r1]
+        want_t += zc.T @ btt[r0:r1]
+        want_n.append(zc @ bnt)
+    for r0, r1 in blocks:
+        want_gv.append(zc_block(r0, r1) @ zv)
+    del zc
+    torch.cuda.empty_cache()
+    log(f"phase float64 references (decoded blocks): "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    def f64_rel(got, want):
+        want = want.cpu().numpy()
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    rels = {"grm_matvec_f64": f64_rel(gv, torch.cat(want_gv)),
+            "dgemm f64 n": f64_rel(cn, torch.cat(want_n)),
+            "dgemm f64 t": f64_rel(ct, want_t)}
+    scale = float(np.abs(res_rf.g_hat).max())
+    err_rf = float(np.abs(res_rf.g_hat - res.g_hat).max()) / scale
+    err_dn = float(np.abs(res_dn.g_hat - res_rf.g_hat).max()) / scale
+    log("check f64 tier vs float64 products: "
+        + " ".join(f"{k} rel={v:.3g}" for k, v in rels.items())
+        + f"; g_hat refined vs cg {err_rf:.3g}, dense vs refined "
+        f"{err_dn:.3g} (of max |g_hat|)")
+    check(res_rf.converged, "refined GBLUP did not reach tol 1e-10")
+    check(all(isinstance(x, np.ndarray) and x.dtype == np.float64
+              for x in (gv, cn, ct)), "the f64 tier did not return float64")
+    check(all(v <= F64_RTOL for v in rels.values()),
+          "the f64 tier disagrees with the float64 products")
+    check(err_rf <= 1e-3 and err_dn <= 1e-3,
+          "refined or dense GBLUP disagrees with the other solvers")
+    del vt, bnt, btt, zv, want_t, want_n, want_gv, gv, cn, ct, res_rf, res_dn
+    torch.cuda.empty_cache()
+
+    # -- 3. the main GWAS path, counted ------------------------------------
+    qtl = np.random.default_rng(SEED).choice(N_SNPS, size=N_QTL,
+                                             replace=False)
+    grng = np.random.default_rng(SEED + 2)
+    cov = grng.standard_normal((N_INDIV, 3))
+    yb = (y > np.median(y)).astype(np.float64)
+    chrom = np.repeat(np.arange(4), N_SNPS // 4)
 
     _kernels.reset_launch_counts()
     scans = {}
@@ -725,7 +860,94 @@ def main() -> int:
           "grm_yang disagrees with its definition")
     log(f"phase main grm family (with checks): "
         f"{time.perf_counter() - t0:.3f} s")
-    del gy, gd, lhs, want, gm, geno
+    del gy, gd, lhs, want, gm
+    torch.cuda.empty_cache()
+
+    # -- 6b. the missing-aware GRM family, counted -------------------------
+    # 0.1% of the calls set missing (a 99.9% call rate, inside what plink
+    # --geno/--mind QC keeps): ~1.07M missing coordinates
+    t0 = time.perf_counter()
+    mrng = np.random.default_rng(SEED + 6)
+    hit = mrng.choice(geno.size, size=int(MISSING_RATE * geno.size),
+                      replace=False)
+    geno[np.unravel_index(hit, geno.shape)] = 3
+    del hit
+    log(f"phase missing calls drawn (host): {time.perf_counter() - t0:.3f} s")
+    gt, secs = sync_time(lambda: from_dense(geno, keep_missing_info=True))
+    nmiss = int(gt.miss_rows_n.numel())
+    log(f"phase from_dense(keep_missing_info=True) (host pack + upload): "
+        f"{secs:.3f} s, {nmiss} missing calls")
+    g1m = subset_snps(gt, np.arange(N_SNPS // 4))        # chromosome 1
+    t0 = time.perf_counter()
+    _kernels.reset_launch_counts()
+    gmc = counted("grm corrected", lambda: grm(gt))
+    gpd = counted("grm pair_denominator",
+                  lambda: grm(gt, pair_denominator=True))
+    gyc = counted("grm_yang corrected", lambda: grm_yang(gt))
+    ldc = counted("ld corrected (chromosome 1)", lambda: ld(g1m))
+    counts = take_counts("grm missing")
+    check(all(counts[k] > 0 for k in ("crossprod", "crossprod_weighted")),
+          "the missing-aware GRM family did not launch K3 and B9")
+    # the add-back's two halves on their own (outside the counts): the host
+    # scipy D D^T of grm() and its segment-sum D Z^T
+    t1 = time.perf_counter()
+    ia, ja, wd, _, (mi, ms) = _missing_d_csr(gt)
+    ddt = _ddt_dense(mi, ms, wd, N_INDIV, N_SNPS, dtype=np.float32)
+    t2 = time.perf_counter()
+    seg, secs = sync_time(lambda: sparse_times_geno(
+        gt, ia, ja, wd, N_INDIV, trans_geno="t"))
+    log(f"phase grm() add-back parts: host D D^T {t2 - t1:.3f} s "
+        f"(nnz {int(np.count_nonzero(ddt))}), segment-sum D Z^T {secs:.3f} s")
+    del ddt, seg, ia, ja, wd, mi, ms
+    # float64 mean-imputed definitions on rows 0-255: Zc = z - 2f, 0 where
+    # missing; C = the called indicator
+    gd = torch.from_numpy(geno).to(dev)
+    f64 = gt.freq.double()
+    pq2 = 2.0 * f64 * (1.0 - f64)
+    use = pq2 > 1e-12
+    wy = torch.where(use, 1.0 / (pq2 * float(use.sum())),
+                     torch.zeros_like(pq2))
+
+    def zc_rows(r0, r1):
+        z = gd[r0:r1]
+        return torch.where(z == 3, torch.zeros((), dtype=torch.float64,
+                                               device=dev),
+                           z.double() - 2.0 * f64)
+
+    lhs = zc_rows(0, 256)
+    c_lhs = (gd[:256] != 3).double() * pq2
+    num, den, yang = [], [], []
+    c1 = N_SNPS // 4
+    var1 = torch.zeros(c1, dtype=torch.float64, device=dev)  # chromosome 1
+    for r0 in range(0, N_INDIV, 4096):
+        zc = zc_rows(r0, r0 + 4096)
+        num.append(lhs @ zc.T)
+        yang.append((lhs * wy) @ zc.T)
+        den.append(c_lhs @ (gd[r0:r0 + 4096] != 3).double().T)
+        var1 += (zc[:, :c1] ** 2).sum(dim=0)
+    del zc
+    num, den, yang = torch.cat(num, 1), torch.cat(den, 1), torch.cat(yang, 1)
+    want = {"grm": num / float(gt.sigma2), "grm pair_denominator": num / den,
+            "grm_yang": yang}
+    got = {"grm": gmc[:256], "grm pair_denominator": gpd[:256],
+           "grm_yang": gyc[:256]}
+    rels = {k: float((got[k].double() - want[k]).abs().max()
+                     / want[k].abs().max()) for k in want}
+    dl = torch.diagonal(ldc)[var1 > 0]
+    ld_diag = float((dl - 1.0).abs().max())
+    log(f"check missing-aware family rows 0-255 vs f64 definitions: "
+        + " ".join(f"{k} rel={v:.3g}" for k, v in rels.items())
+        + f"; ld diagonal |r - 1| {ld_diag:.3g} over the {dl.numel()} "
+        f"SNPs of positive variance")
+    check(all(bool(torch.isfinite(x).all()) for x in got.values())
+          and all(v <= 1e-4 for v in rels.values()),
+          "the missing-aware GRM family disagrees with its definitions")
+    check(ld_diag <= 1e-6, "corrected ld diagonal differs from 1")
+    log(f"phase main grm missing (with checks): "
+        f"{time.perf_counter() - t0:.3f} s")
+    del gmc, gpd, gyc, ldc, gd, lhs, c_lhs, num, den, yang, want, got, dl
+    del var1
+    del gt, g1m, geno
     torch.cuda.empty_cache()
     missing = [k for k in SOURCES if launches[k] == 0]
     check(not missing, f"never launched on a main path: {missing}")
@@ -736,11 +958,26 @@ def main() -> int:
     ysb = (ys > np.median(ys)).astype(np.float64)
     covs = np.random.default_rng(SEED + 4).standard_normal((600, 3))
     chroms = np.repeat(np.arange(4), 1250)
+    srng = np.random.default_rng(SEED + 8)
+    s_csr = (srng.random((50, 600)) < 0.05) * srng.standard_normal((50, 600))
+    s_args = (np.concatenate([[0], np.cumsum((s_csr != 0).sum(axis=1))]) + 1,
+              np.nonzero(s_csr)[1] + 1, s_csr[s_csr != 0], 50)
     fits = {}
     for d in ("cpu", dev):
         gs = from_dense(small, device=d)
         fits[str(d)] = {
             "fitted": gblup.gblup(gs, ys, h2=0.5, n_pcs=3, tol=1e-5).fitted,
+            "fitted refined": gblup.gblup(gs, ys, h2=0.5, n_pcs=3,
+                                          solver="refined",
+                                          tol=1e-10).fitted,
+            "fitted dense": gblup.gblup(gs, ys, h2=0.5, n_pcs=3,
+                                        solver="dense").fitted,
+            "sparse dense": sparse_times_geno(
+                gs, *s_args, method="dense").cpu().numpy(),
+            "sparse segsum": sparse_times_geno(
+                gs, *s_args, method="segsum").cpu().numpy(),
+            "sparse f64": sparse_times_geno(
+                gs, *s_args, method="dense", precision="f64").cpu().numpy(),
             "grm": grm(gs).cpu().numpy(),
             "linear": gwas_linear(gs, ys, covariates=covs).t,
             "logistic": gwas_logistic(gs, ysb, covariates=covs).t,
@@ -753,7 +990,9 @@ def main() -> int:
             for k in fc if k != "grm"}
     log(f"check small panel GPU vs CPU: grm max_abs={err_grm:.3g} "
         + " ".join(f"{k} rel={v:.3g}" for k, v in rels.items()))
-    check(err_grm <= 1e-5 and all(v <= SMALL_RTOL for v in rels.values()),
+    check(err_grm <= 1e-5 and all(
+        v <= (F64_RTOL if "f64" in k else SMALL_RTOL)
+        for k, v in rels.items()),
           "GPU pipeline disagrees with the CPU path on the small panel")
 
     # the LD and GRM families on a panel with 2% missing genotypes and a
@@ -761,11 +1000,25 @@ def main() -> int:
     sm = bed.simulate_genotypes(600, 5000, seed=SEED + 5, missing_rate=0.02)
     sm[:, 1::50] = sm[:, 0::50]
     t0 = time.perf_counter()
+    bsm = {"n": srng.standard_normal((5000, 4)),
+           "t": srng.standard_normal((600, 4))}
+    usm = srng.standard_normal(5000)
     fam = {}
     for d in ("cpu", dev):
         tr = from_dense(sm, keep_missing_info=True, device=d)
         un = from_dense(sm, device=d)
         fam[str(d)] = {
+            f"dgemm f64 {trans} {name}": dgemm(
+                tr, bsm[trans], trans=trans, center=center, precision="f64",
+                ignore_missings=False)
+            for trans in ("n", "t")
+            for name, center in (("none", False), ("rowmeans", True),
+                                 ("colmeans", "colmeans"), ("user", usm))}
+        fam[str(d)].update({
+            "grm corrected": grm(tr).cpu().numpy(),
+            "grm pair_denominator": grm(tr, pair_denominator=True
+                                        ).cpu().numpy(),
+            "ld corrected": ld(tr).cpu().numpy(),
             "ld_windowed corrected": ld_windowed(tr, 64,
                                                  correct_missing=True),
             "ld_windowed uncorrected": ld_windowed(tr, 64,
@@ -775,10 +1028,10 @@ def main() -> int:
             "ld_prune corrected": ld_prune(tr, 64),
             "ld_prune": ld_prune(un, 64, chrom=chroms),
             "pairwise_nonmissing": pairwise_nonmissing(tr).cpu().numpy(),
-            "grm_yang": grm_yang(un).cpu().numpy(),
+            "grm_yang corrected": grm_yang(tr).cpu().numpy(),
             "dominance_grm": dominance_grm(tr).cpu().numpy(),
             "grm_blocked": grm_blocked(sm, row_block=512, device=d),
-            "ld_blocked": ld_blocked(tr, row_block=1024)}
+            "ld_blocked": ld_blocked(tr, row_block=1024)})
     fc, fg = fam["cpu"], fam[str(dev)]
     equal = {k: bool(np.array_equal(fg[k], fc[k])) for k in fc
              if fc[k].dtype in (np.bool_, np.int32)}
@@ -789,8 +1042,9 @@ def main() -> int:
         + " ".join(f"{k} equal={v}" for k, v in equal.items()) + " "
         + " ".join(f"{k} rel={v:.3g}" for k, v in rels.items())
         + f"; ld_prune drops {pruned}")
-    check(all(equal.values()) and all(v <= SMALL_RTOL for v in rels.values())
-          and pruned >= 100,
+    check(all(equal.values()) and pruned >= 100 and all(
+        v <= (F64_RTOL if "f64" in k else SMALL_RTOL)
+        for k, v in rels.items()),
           "LD/GRM families disagree between the GPU and the CPU paths")
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
@@ -799,6 +1053,7 @@ def main() -> int:
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}
                for k, (src, rep) in SOURCES.items()]
+    log(f"chip_smoke total: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

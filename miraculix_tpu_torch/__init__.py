@@ -1,14 +1,17 @@
 """miraculix_tpu_torch: the PyTorch/CUDA port of miraculix_tpu.
 
 Linear algebra directly on 2-bit-packed genotype matrices, on one NVIDIA
-GPU: centered dgemm in both orientations, the exact integer GRM
-crossproduct, CG solves, GBLUP, the GWAS scans, the LD family (full,
-banded, scores, pruning, out of core) and the GRM family (GCTA, dominance,
-out of core).  The packed products run in hand-written CUDA kernels
+GPU: centered dgemm in both orientations (bf16, f32 and exact float64
+tiers), the exact integer GRM crossproduct, sparse x genotype products, CG
+solves with float64 refinement, dense solvers, GBLUP, the GWAS scans, the
+LD family (full, banded, scores, pruning, out of core) and the GRM family
+(GCTA, dominance, out of core), all with exact missing-genotype
+corrections.  The packed products run in hand-written CUDA kernels
 (``csrc/``, built at first use by ``_kernels``); on CPU tensors every op
 takes the plain torch version of its kernel.  Panels go to the CUDA card
 unless the caller names another device.  Imports torch and numpy (and scipy
-for p-values) only, never jax.
+for p-values and the sparse D D^T of the missing corrections) only, never
+jax.
 """
 # NB: as in the reference, the gblup ESTIMATOR stays at
 # miraculix_tpu_torch.gblup.gblup (re-exporting it would shadow the module)
@@ -16,22 +19,32 @@ from .geno import (GenoMatrix, from_bed, from_dense, from_plink,
                    from_reference_state, load, save, subset_snps)
 from .gwas import (GWASResult, MixedGWASResult, gwas_linear, gwas_logistic,
                    gwas_mixed, gwas_mixed_loco)
-from .ops.dgemm import dgemm, packed_matmul, packed_matmul_tall
+from .ops.dgemm import (dgemm, packed_matmul, packed_matmul_exact,
+                        packed_matmul_f64, packed_matmul_int8,
+                        packed_matmul_tall)
 from .ops.grm import (dominance_grm, grm, grm_blocked, grm_yang, ld,
                       ld_blocked, ld_prune, ld_score, ld_windowed,
                       packed_crossprod, packed_crossprod_rect,
                       pairwise_nonmissing, snp_crossprod)
-from .solve.cg import (CGResult, cg, grm_cg_solve, grm_diag, grm_matvec,
-                       jacobi_minv)
+from .ops.sparse import sparse_times_geno, sparse_times_geno_segsum
+from .solve import (CGResult, DenseSolveResult, RelMatResult, chol2inv,
+                    dense_solve, grm_cg_solve_refined, grm_matvec_f64,
+                    solve_posdef, solve_relmat, sqrt_posdef, sqrt_rhs,
+                    x_cinv_y_logdet)
+from .solve.cg import cg, grm_cg_solve, grm_diag, grm_matvec, jacobi_minv
 
 __version__ = "0.1.0"
 
 __all__ = [
     "CGResult",
+    "DenseSolveResult",
     "GWASResult",
     "GenoMatrix",
     "MixedGWASResult",
+    "RelMatResult",
     "cg",
+    "chol2inv",
+    "dense_solve",
     "dgemm",
     "dominance_grm",
     "from_bed",
@@ -41,8 +54,10 @@ __all__ = [
     "grm",
     "grm_blocked",
     "grm_cg_solve",
+    "grm_cg_solve_refined",
     "grm_diag",
     "grm_matvec",
+    "grm_matvec_f64",
     "grm_yang",
     "gwas_linear",
     "gwas_logistic",
@@ -58,9 +73,19 @@ __all__ = [
     "packed_crossprod",
     "packed_crossprod_rect",
     "packed_matmul",
+    "packed_matmul_exact",
+    "packed_matmul_f64",
+    "packed_matmul_int8",
     "packed_matmul_tall",
     "pairwise_nonmissing",
     "save",
     "snp_crossprod",
+    "solve_posdef",
+    "solve_relmat",
+    "sparse_times_geno",
+    "sparse_times_geno_segsum",
+    "sqrt_posdef",
+    "sqrt_rhs",
     "subset_snps",
+    "x_cinv_y_logdet",
 ]

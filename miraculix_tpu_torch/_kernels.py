@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"tall_dgemm": 0, "tall_dgemm_cv": 0, "tall_dgemm_bf16": 0,
             "tall_dgemm_f32": 0, "wide_dgemm_split": 0, "wide_dgemm_f32": 0,
             "wide_dgemm_bf16": 0, "wide_dgemm_hilo": 0, "crossprod": 0,
-            "crossprod_rect": 0, "crossprod_tri": 0, "crossprod_weighted": 0}
+            "crossprod_rect": 0, "crossprod_tri": 0, "crossprod_weighted": 0,
+            "matmul_int8": 0}
 TALL_RHS = {"split": 0, "f32": 0, "bf16": 1}            # B as given / bf16(B)
 WIDE_RHS = {"split": 0, "f32": 0, "bf16": 1, "hilo": 2}
 
@@ -124,6 +125,10 @@ def _load():
             lib.mx_crossprod_weighted.argtypes = [vp, i32, i32, vp, i32, vp,
                                                   vp]
             lib.mx_crossprod_weighted.restype = i32
+            lib.mx_matmul_int8_blocks.argtypes = [i32, i32]
+            lib.mx_matmul_int8_blocks.restype = i64
+            lib.mx_matmul_int8.argtypes = [vp, i32, i32, vp, i32, i32, vp, vp]
+            lib.mx_matmul_int8.restype = i32
             _lib = lib
     return _lib
 
@@ -147,6 +152,7 @@ def _raise_if(err: int, what: str) -> None:
 CROSSPROD_TILE = 64      # output tile edge of csrc/crossprod.cu
 TALL_WARPS_PER_SM = 128  # launched warps per SM the contraction split aims at
 WIDE_BLOCKS_PER_SM = 8   # launched wide blocks per SM the split aims at
+INT8_BLOCKS_PER_SM = 4   # launched digit-product blocks per SM, likewise
 
 
 def _sms(device) -> int:
@@ -301,4 +307,43 @@ def crossprod_weighted(zq: torch.Tensor, w: torch.Tensor,
                                         int(not triangle), _ptr(out),
                                         ctypes.c_void_p(stream)),
               "crossprod_weighted")
+    return out
+
+
+def digit_words(d: torch.Tensor, kw: int) -> torch.Tensor:
+    """int8 digits [cols <= 16*kw, n] (plane-major rows m*kw + w) -> int32
+    [4, kw, n] whose byte b of entry (q, w, j) is the digit of plane 4b + q:
+    the operand layout of ``csrc/matmul_int8.cu``."""
+    cols, n = d.shape
+    full = torch.zeros((16 * kw, n), dtype=torch.int8, device=d.device)
+    full[:cols] = d
+    # [b, q, w, j] -> [q, w, j, b]; four little-endian bytes per int32
+    return (full.reshape(4, 4, kw, n).permute(1, 2, 3, 0).contiguous()
+            .view(torch.int32).reshape(4, kw, n))
+
+
+def matmul_int8(zq: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """B10: exact int32 decode(zq) @ D [rows, n].  ``zq`` int32 [rows, kw],
+    ``d`` int8 digits [cols <= 16*kw, n] (rows past ``cols`` count as zero);
+    the caller keeps 192 * 16 * kw < 2^31."""
+    lib = _load()
+    _check(zq, "zq", torch.int32, 2)
+    _check(d, "d", torch.int8, 2)
+    rows, kw = zq.shape
+    cols, n = d.shape
+    if cols > 16 * kw or n < 1 or d.device != zq.device:
+        raise ValueError(f"matmul_int8: digits {tuple(d.shape)} do not fit "
+                         f"zq {tuple(zq.shape)}")
+    dev = zq.device
+    dp = digit_words(d, kw)
+    blocks = lib.mx_matmul_int8_blocks(rows, n)
+    splits = max(1, min(-(-INT8_BLOCKS_PER_SM * _sms(dev) // blocks),
+                        kw // 256, 65535))
+    out = (torch.zeros if splits > 1 else torch.empty)(
+        (rows, n), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    LAUNCHES["matmul_int8"] += 1
+    _raise_if(lib.mx_matmul_int8(_ptr(zq), rows, kw, _ptr(dp), n, splits,
+                                 _ptr(out), ctypes.c_void_p(stream)),
+              "matmul_int8")
     return out

@@ -1,15 +1,17 @@
-"""GBLUP pipeline: randomized GRM PCA -> BLUE/BLUP by block CG.
+"""GBLUP pipeline: randomized GRM PCA -> BLUE/BLUP.
 
-Torch twin of ``miraculix_tpu.gblup`` for ``solver="cg"`` on a
-:class:`GenoMatrix`.  With lam = (1 - h2) / h2 and G VanRaden-scaled:
+Torch twin of ``miraculix_tpu.gblup`` on a :class:`GenoMatrix`, with the
+reference's three solvers: block CG in f32 ("cg"), that CG inside float64
+iterative refinement ("refined"), and a formed GRM with a Cholesky solve
+("dense").  With lam = (1 - h2) / h2 and G VanRaden-scaled:
 
     beta_hat = (X^T (G + lam I)^-1 X)^-1 X^T (G + lam I)^-1 y     (BLUE)
     u        = (G + lam I)^-1 (y - X beta_hat)
     g_hat    = G u                                                (BLUP)
 
-G is never formed: every product with it is two packed products.  The
-random draws (PCA test matrix, simulated phenotypes) are numpy's, seeded as
-in the reference, so both packages see the same inputs.
+Outside "dense", G is never formed: every product with it is two packed
+products.  The random draws (PCA test matrix, simulated phenotypes) are
+numpy's, seeded as in the reference, so both packages see the same inputs.
 """
 from __future__ import annotations
 
@@ -21,7 +23,10 @@ import torch
 
 from .geno import GenoMatrix
 from .ops.dgemm import dgemm
-from .solve.cg import grm_cg_solve, grm_matvec
+from .ops.grm import grm
+from .solve.cg import (grm_cg_solve, grm_cg_solve_refined, grm_matvec,
+                       grm_matvec_f64)
+from .solve.dense import dense_solve
 
 
 def _check_container(g) -> None:
@@ -61,21 +66,23 @@ class GBLUPResult:
     pcs: Optional[np.ndarray]
     cg_iterations: int = 0
     u: Optional[np.ndarray] = None  # (G_s + lam I)^-1 (y - X beta)
-    converged: bool = True          # every CG solve met ``tol``
+    converged: bool = True          # every CG (or refined) solve met tol
 
 
 def gblup(g: GenoMatrix, y: np.ndarray, h2: float = 0.5, n_pcs: int = 10,
           covariates: Optional[np.ndarray] = None, solver: str = "cg",
           tol: float = 1e-4, maxiter: int = 2000,
           seed: int = 0) -> GBLUPResult:
-    """Full GBLUP estimation (reference ``gblup`` semantics, ``solver="cg"``).
+    """Full GBLUP estimation (reference ``gblup`` semantics).
 
-    ``tol`` bounds each CG column's residual norm of the unscaled system
-    (Z_c Z_c^T + lam sigma2 I) b' = rhs."""
-    if solver != "cg":
-        raise NotImplementedError(
-            f"solver={solver!r} is not ported yet (ROADMAP A7/A8/A10: "
-            "'dense' needs solve/dense, 'refined' the f64 tier)")
+    ``solver``: "cg" (f32 block CG on the device; ``tol`` bounds each
+    column's residual norm of the unscaled system (Z_c Z_c^T + lam sigma2 I)
+    b' = rhs), "refined" (float64-grade solves by iterative refinement,
+    ``tol`` the relative f64 residual, e.g. 1e-10; g_hat by the f64
+    matvec), or "dense" (the scaled GRM formed by :func:`grm` and solved by
+    Cholesky in f32)."""
+    if solver not in ("cg", "refined", "dense"):
+        raise ValueError(f"solver must be cg/refined/dense, got {solver!r}")
     _check_container(g)
     n = g.indiv
     lam = (1.0 - h2) / h2
@@ -102,20 +109,47 @@ def gblup(g: GenoMatrix, y: np.ndarray, h2: float = 0.5, n_pcs: int = 10,
     def _cg(rhs: np.ndarray) -> Tuple[np.ndarray, int]:
         """(Z_c Z_c^T + lam sigma2 I) b' = rhs; returns (sigma2 b', iters)."""
         nonlocal converged
+        if solver == "refined":
+            xs, _, inner, rel = grm_cg_solve_refined(
+                g, rhs, lam=lam * sigma2, scale=False, tol=tol,
+                inner_maxiter=maxiter)
+            converged &= bool(rel.max() <= tol)
+            return xs * sigma2, inner
         res = grm_cg_solve(g, rhs, lam=lam * sigma2, scale=False, tol=tol,
                            maxiter=maxiter)
         converged &= bool(torch.all(res.residual_norm <= tol))
         return res.x.cpu().numpy().astype(np.float64) * sigma2, res.iterations
 
-    b, iters = _cg(np.concatenate([x, y[:, None]], axis=1))
+    def _dense(rhs: np.ndarray) -> np.ndarray:
+        return dense_solve(gmat, torch.as_tensor(
+            rhs, dtype=torch.float32, device=g.device)).x.cpu().numpy(
+        ).astype(np.float64)
+
+    rhs = np.concatenate([x, y[:, None]], axis=1)
+    if solver == "dense":
+        gmat = grm(g, scale=True, dtype=torch.float32)
+        gmat.diagonal().add_(lam)
+        b, iters = _dense(rhs), 0
+    else:
+        b, iters = _cg(rhs)
     bx, by = b[:, :p], b[:, p]
     beta = np.linalg.solve(x.T @ bx, x.T @ by)
-    u, it_u = _cg((y - x @ beta)[:, None])
-    u = u[:, 0]
-    iters += it_u
-    g_hat = grm_matvec(g, torch.as_tensor(u[:, None], dtype=torch.float32,
-                                          device=g.device))
-    g_hat = g_hat.cpu().numpy().astype(np.float64)[:, 0] / sigma2
+    if solver == "dense":
+        u = _dense((y - x @ beta)[:, None])[:, 0]
+        gmat.diagonal().sub_(lam)
+        g_hat = (gmat @ torch.as_tensor(u, dtype=torch.float32,
+                                        device=g.device)).cpu().numpy()
+        g_hat = g_hat.astype(np.float64)
+    else:
+        u, it_u = _cg((y - x @ beta)[:, None])
+        u = u[:, 0]
+        iters += it_u
+        if solver == "refined":
+            g_hat = grm_matvec_f64(g, u[:, None])[:, 0] / sigma2
+        else:
+            g_hat = grm_matvec(g, torch.as_tensor(
+                u[:, None], dtype=torch.float32, device=g.device))
+            g_hat = g_hat.cpu().numpy().astype(np.float64)[:, 0] / sigma2
     return GBLUPResult(beta=beta, g_hat=g_hat, fitted=x @ beta + g_hat,
                        pcs=pcs, cg_iterations=iters, u=u, converged=converged)
 

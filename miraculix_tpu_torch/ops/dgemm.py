@@ -1,7 +1,7 @@
 """dgemm_compressed: genotype matrix x dense matrix, straight off packed bits.
 
-Torch twin of ``miraculix_tpu.ops.dgemm`` at the ``fast``, ``bf16`` and
-``f32`` tiers.  For genotype matrix Z (indiv, snps) and frequencies f:
+Torch twin of ``miraculix_tpu.ops.dgemm`` at the ``fast``, ``bf16``, ``f32``
+and ``f64`` tiers.  For genotype matrix Z (indiv, snps) and frequencies f:
 
     trans='n':  C[indiv, n] = (Z - M) @ B,   B: [snps, n]
     trans='t':  C[snps,  n] = (Z - M)^T @ B, B: [indiv, n]
@@ -11,7 +11,10 @@ chooses: :func:`packed_matmul_tall` (``csrc/tall_dgemm.cu``) for RHS of up
 to 64 columns at the fast tier and 128 at the bf16/f32 tiers, and
 :func:`packed_matmul` (``csrc/wide_dgemm.cu``) for wider RHS.  Centering is
 a rank-1 epilogue whose contraction-side reduction (c^T B or 1^T B) the
-tall kernel fuses at the fast tier.
+tall kernel fuses at the fast tier.  The f64 tier splits B into int8 digits
+and runs them through the exact digit kernel (``csrc/matmul_int8.cu``) in
+one launch per product; digits and recombination stay on the device in
+float64 (:func:`packed_matmul_exact`).
 """
 from __future__ import annotations
 
@@ -122,7 +125,120 @@ def packed_matmul(zq: torch.Tensor, b, *, split: bool = True,
                                wide_rhs(b.shape[1], split, single_bf16))
 
 
-def _resolve_center(center, device) -> tuple:
+INT8_PRODUCT_MAX = 192   # |genotype x digit| <= 3 * 64 in the f64 tier
+
+
+def _check_int8_capacity(kw: int) -> None:
+    if INT8_PRODUCT_MAX * 16 * kw >= 2 ** 31:
+        raise ValueError(
+            f"{16 * kw} genotype columns could overflow the exact int32 "
+            "digit accumulator (limit ~11.2M SNPs); chunk the contraction "
+            "(packed_matmul_exact does this automatically)")
+
+
+def packed_matmul_int8_plain(zq: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`packed_matmul_int8`: decode to float64 (exact
+    below 2^53), multiply and cast to int32.  (A CPU ``int8 @ int8`` would
+    wrap.)"""
+    d = decode_planar16(zq, torch.float64)[:, :b.shape[0]]
+    return (d @ b.to(torch.float64)).to(torch.int32)
+
+
+def _matmul_int8(zq: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """decode(zq) @ D for digits ``d`` already known to be int8 values."""
+    if not zq.is_cuda:
+        return packed_matmul_int8_plain(zq, d)
+    return _kernels.matmul_int8(zq.contiguous(),
+                                d.to(torch.int8).contiguous())
+
+
+def packed_matmul_int8(zq: torch.Tensor, b) -> torch.Tensor:
+    """decode(zq) @ B with an integer digit RHS, exact int32 accumulation.
+
+    ``b``: integer values in [-128, 127] (the f64 tier's digits lie in
+    [-64, 64]), [cols <= 16*kw, n] in plane-major row order; rows past
+    ``cols`` count as zero.  Raises where 192 * 16*kw could overflow int32.
+    Returns int32 [rows, n].  CUDA tensors launch the digit kernel (B10);
+    CPU tensors take the plain version."""
+    _check_int8_capacity(zq.shape[1])
+    b = torch.as_tensor(b, device=zq.device)
+    if b.dim() != 2 or b.shape[0] > 16 * zq.shape[1] or b.shape[1] < 1:
+        raise ValueError(f"digits {tuple(b.shape)} do not fit packed words "
+                         f"{tuple(zq.shape)}")
+    if b.dtype.is_floating_point or b.dtype.is_complex or (b.numel() and (
+            int(b.min()) < -128 or int(b.max()) > 127)):
+        raise ValueError("digits must be integers in [-128, 127]")
+    return _matmul_int8(zq, b)
+
+
+def packed_matmul_exact(zq: torch.Tensor, b, *, digits: int = 8,
+                        as_numpy: bool = True, _kw_cap: int = 2 ** 19):
+    """decode(zq) @ B to float64 grade by integer-digit splitting.
+
+    Each column of B is scaled by a power of two into (-1/2, 1/2) and
+    expanded in base 2^7 as ``digits`` int8 digits (round half to even, so
+    residuals stay in [-1/2, 1/2] and digits in [-64, 64]); the digit
+    matrices, stacked side by side, go through ONE exact int8 product (B10)
+    and the int32 partials recombine in float64 with power-of-two weights in
+    the reference's order.  Every step is exact, so the digits equal the
+    reference's bit for bit; the only error is the base-2^7 truncation of B
+    (~2^-(7*digits) of each column's max) plus one f64 rounding per
+    addition.  All of it runs on ``zq``'s device.  Contractions whose int32
+    sums could overflow (or longer than ``_kw_cap`` words, a knob for tests)
+    are chunked over the packed-word axis and the f64 partials summed.
+    Returns numpy float64 when ``as_numpy`` (default), else a float64
+    tensor on the device."""
+    rows, kw = zq.shape
+    dev = zq.device
+    b64 = torch.as_tensor(b, dtype=torch.float64, device=dev)
+    if b64.dim() != 2 or b64.shape[0] > 16 * kw:
+        raise ValueError(f"B {tuple(b64.shape)} does not fit packed words "
+                         f"{tuple(zq.shape)}")
+    cols, n = b64.shape
+    if INT8_PRODUCT_MAX * 16 * kw >= 2 ** 31 or kw > _kw_cap:
+        kw_cap = min(_kw_cap, 2 ** 19)
+        acc = torch.zeros((rows, n), dtype=torch.float64, device=dev)
+        for c0 in range(0, kw, kw_cap):
+            c1 = min(c0 + kw_cap, kw)
+            # decoded column m*kw + c of the full packing is column
+            # m*(c1 - c0) + (c - c0) of the chunk's
+            idx = (torch.arange(16, device=dev)[:, None] * kw
+                   + torch.arange(c0, c1, device=dev)[None, :]).reshape(-1)
+            bc = torch.zeros((idx.numel(), n), dtype=torch.float64,
+                             device=dev)
+            valid = idx < cols
+            bc[valid] = b64[idx[valid]]
+            acc += packed_matmul_exact(zq[:, c0:c1], bc, digits=digits,
+                                       as_numpy=False, _kw_cap=kw_cap)
+        return acc.cpu().numpy() if as_numpy else acc
+    absmax = b64.abs().amax(dim=0)
+    # absmax = m * 2^e with m in [0.5, 1): |b| / 2^e < 1, so |x| < 1/2
+    e = torch.where(absmax > 0, torch.frexp(absmax).exponent,
+                    torch.zeros((), dtype=torch.int32, device=dev))
+    scale = torch.exp2(e.to(torch.float64))
+    x = b64 / (2.0 * scale)
+    planes = []
+    for _ in range(digits):
+        d = torch.round(x * 128.0)           # half to even, as np.rint
+        x = x * 128.0 - d                    # residual in [-1/2, 1/2]
+        planes.append(d)
+    p = _matmul_int8(zq, torch.stack(planes, dim=1).reshape(cols, digits * n)
+                     .to(torch.int8))        # digit j in columns j*n ...
+    acc = torch.zeros((rows, n), dtype=torch.float64, device=dev)
+    for j in range(digits):
+        acc += p[:, j * n:(j + 1) * n].to(torch.float64) * (
+            2.0 * scale * 128.0 ** -(j + 1))[None, :]
+    return acc.cpu().numpy() if as_numpy else acc
+
+
+def packed_matmul_f64(zq: torch.Tensor, b, *, as_numpy: bool = False,
+                      **kw_args):
+    """The ``precision='f64'`` tier: :func:`packed_matmul_exact` (float64
+    tensor on the device unless ``as_numpy``)."""
+    return packed_matmul_exact(zq, b, as_numpy=as_numpy, **kw_args)
+
+
+def _resolve_center(center, device, dtype=torch.float32) -> tuple:
     """``center`` -> (mode, user vector): none / rowmeans / colmeans / user."""
     if center is True:
         return "rowmeans", None
@@ -137,7 +253,7 @@ def _resolve_center(center, device) -> tuple:
         if mode in ("colmeans", "col"):
             return "colmeans", None
         raise ValueError(f"unknown centering mode {center!r}")
-    return "user", torch.as_tensor(center, dtype=torch.float32, device=device)
+    return "user", torch.as_tensor(center, dtype=dtype, device=device)
 
 
 def dgemm(g: GenoMatrix, b, trans: str = "n", center=True,
@@ -152,7 +268,10 @@ def dgemm(g: GenoMatrix, b, trans: str = "n", center=True,
     per-individual pseudo-frequencies for 'n'.  ``ignore_missings=False``
     makes recorded missing entries contribute 0 to the centered product.
     ``precision``: "fast" (f32 products), "bf16" (B rounded once to bf16,
-    ~2e-3 relative) or "f32".  Returns f32 [rows, n] on the panel's device.
+    ~2e-3 relative), "f32", or "f64" (exact digit products, ~1e-16
+    relative).  Returns f32 [rows, n] on the panel's device; at "f64" the
+    caller's B and user center are taken in float64, the whole epilogue
+    runs on the device in float64, and the result is numpy float64.
     """
     trans = trans.lower()
     if trans not in ("n", "t"):
@@ -160,14 +279,12 @@ def dgemm(g: GenoMatrix, b, trans: str = "n", center=True,
     if precision not in ("bf16", "fast", "f32", "f64"):
         raise ValueError(f"precision must be one of bf16/fast/f32/f64, "
                          f"got {precision!r}")
-    if precision == "f64":
-        raise NotImplementedError(
-            "precision='f64' is not ported yet (ROADMAP B10 and A10)")
     dev = g.device
-    b = torch.as_tensor(b, dtype=torch.float32, device=dev)
+    dtype = torch.float64 if precision == "f64" else torch.float32
+    b = torch.as_tensor(b, dtype=dtype, device=dev)
     if b.dim() == 1:
         b = b[:, None]
-    mode, user_vec = _resolve_center(center, dev)
+    mode, user_vec = _resolve_center(center, dev, dtype)
     if trans == "n":
         zq, zq_other, rows, cols = g.zq_n, g.zq_t, g.indiv, g.snps
     else:
@@ -177,6 +294,9 @@ def dgemm(g: GenoMatrix, b, trans: str = "n", center=True,
             f"B has {b.shape[0]} rows, expected {cols} for trans='{trans}'")
     if mode == "colmeans" and g.pseudo_freq is None:
         raise ValueError("colmeans centering needs pseudo_freq")
+    if precision == "f64":
+        return _dgemm_f64(g, b, zq, rows, trans, mode, user_vec, normalize,
+                          ignore_missings)
 
     tall = (b.shape[1] <= TALL_LIMITS[precision]
             and b.shape[0] <= zq_other.shape[0])
@@ -209,18 +329,43 @@ def dgemm(g: GenoMatrix, b, trans: str = "n", center=True,
     return c
 
 
+def _dgemm_f64(g: GenoMatrix, b, zq, rows: int, trans: str, mode: str,
+               user_vec, normalize: bool, ignore_missings: bool):
+    """The f64 tier of :func:`dgemm`: exact digit product and the
+    reference's epilogue, in float64 on the device; numpy float64 out."""
+    c = packed_matmul_f64(zq, b)[:rows]
+    if mode in ("rowmeans", "user"):
+        cvec = 2.0 * g.freq.double() if mode == "rowmeans" else user_vec
+        if trans == "n":
+            c = c - (cvec @ b)[None, :]
+        else:
+            c = c - cvec[:, None] * b.sum(dim=0)[None, :]
+    elif mode == "colmeans":
+        pvec = 2.0 * g.pseudo_freq.double()
+        if trans == "n":
+            c = c - pvec[:rows, None] * b.sum(dim=0)[None, :]
+        else:
+            c = c - (pvec @ b)[None, :]
+    if mode != "none" and not ignore_missings and g.miss_rows_n is not None:
+        c = _missing_correction(g, b, c, trans, mode, user_vec)
+    if normalize:
+        s2 = g.sigma2 if trans == "t" else g.pseudo_sigma2
+        c = c / torch.sqrt(s2.double())
+    return c.cpu().numpy()
+
+
 def _missing_correction(g: GenoMatrix, b, c, trans: str, mode: str,
                         user_vec=None):
     """A missing entry entered the packed product as genotype 0 and so
     contributed (0 - center) * B-row; add the center back at each missing
-    coordinate (i, s) so that it contributes 0."""
+    coordinate (i, s) so that it contributes 0.  Works in ``b``'s type."""
     mi, ms = g.miss_rows_n, g.miss_cols_n
     if mode == "colmeans":
-        cent = (2.0 * g.pseudo_freq)[mi]
+        cent = (2.0 * g.pseudo_freq.to(b.dtype))[mi]
     elif mode == "user":
         cent = user_vec[ms]
     else:
-        cent = (2.0 * g.freq)[ms]
+        cent = (2.0 * g.freq.to(b.dtype))[ms]
     if trans == "n":
         return c.index_add(0, mi, cent[:, None] * b[ms])
     return c.index_add(0, ms, cent[:, None] * b[mi])

@@ -1,15 +1,18 @@
 """Crossproducts, the GRM family and the LD family.
 
-Torch twin of ``miraculix_tpu.ops.grm`` without the sparse missing-data
-corrections of ``ops/sparse``.  The packed crossproducts run in the kernels of
-``csrc/crossprod.cu`` (K3 on the upper tile pairs; B8 on a rectangular grid;
-B12 on the masked grid) and ``csrc/crossprod_weighted.cu`` (B9) for CUDA
-tensors; CPU tensors take the plain versions.
+Torch twin of ``miraculix_tpu.ops.grm``.  The packed crossproducts run in the
+kernels of ``csrc/crossprod.cu`` (K3 on the upper tile pairs; B8 on a
+rectangular grid; B12 on the masked grid) and ``csrc/crossprod_weighted.cu``
+(B9) for CUDA tensors; CPU tensors take the plain versions.
 
 - GRM (VanRaden, the Schlather decomposition):
       M -= (m 1^T + 1 m^T) / n;  M += (sum m) / n^2;  M /= 2 sum p(1-p)
   with m = M 1 the row sums of the raw integer crossproduct.
 - LD correlation r:  M -= 4n f f^T;  M /= sigma sigma^T, sigma = sqrt(diag M).
+- Missing genotypes (panels that record them): each missing entry is made to
+  contribute exactly 0 to the centered product (mean imputation): exact
+  centering by 2f, plus the add-back matrix D (2f_s at each missing
+  coordinate) through ``ops/sparse`` (D Z^T) and a host scipy D D^T.
 - Banded LD (``ld_windowed``, ``ld_score``, ``ld_prune``): one rectangular
   product per row block of the SNP-major packing against the block plus its
   window, centered, gathered to the band and divided on the device.
@@ -26,12 +29,16 @@ from ..geno import ROW_MULT, GenoMatrix, _device, _words, from_dense
 from ..io import bed, codec
 from .common import decode_planar16, packed_row_sq_stats
 from .dgemm import dgemm
-
-_A8 = "needs ops/sparse, not ported yet (ROADMAP A8)"
+from .sparse import sparse_times_geno
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().astype(np.float64)
+
+
+def _np(dtype: torch.dtype):
+    """The numpy type of a torch floating type."""
+    return torch.empty((), dtype=dtype).numpy().dtype
 
 
 def _check_capacity(kw: int) -> None:
@@ -188,27 +195,93 @@ def _resolve_missing(g: GenoMatrix, correct_missing) -> bool:
     return correct_missing
 
 
+def _missing_d_csr(g: GenoMatrix):
+    """The add-back matrix D of the missing genotypes: D[i, s] = 2f_s at each
+    recorded missing coordinate (a missing entry was packed as 0, and
+    centering left -2f_s there; Zc + D makes it contribute 0).  Returns the
+    1-based CSR of D (host numpy), d2[i] = (D 2f)[i], and the coordinates
+    (mi, ms) sorted by individual."""
+    mi = g.miss_rows_n.cpu().numpy().astype(np.int64)
+    ms = g.miss_cols_n.cpu().numpy().astype(np.int64)
+    f = _host(g.freq)
+    order = np.argsort(mi, kind="stable")
+    mi, ms = mi[order], ms[order]
+    w = 2.0 * f[ms]
+    ia = np.concatenate([[0], np.cumsum(np.bincount(mi,
+                                                    minlength=g.indiv))]) + 1
+    d2 = np.zeros(g.indiv)
+    np.add.at(d2, mi, w * 2.0 * f[ms])
+    return ia, ms + 1, w, d2, (mi, ms)
+
+
+def _ddt_dense(rows, cols, w, n_rows: int, n_cols: int, w2=None,
+               dtype=np.float64) -> np.ndarray:
+    """D1 D2^T as a dense host [n_rows, n_rows] array of ``dtype`` (scipy;
+    D1 has entries ``w`` and D2 ``w2``, by default ``w``, at (rows, cols)).
+    nnz is the number of missing entries, so this is cheap at realistic
+    missing rates.  The product is formed in float64 and each entry cast
+    once."""
+    from scipy import sparse
+
+    d1 = sparse.csr_matrix((w, (rows, cols)), shape=(n_rows, n_cols))
+    d2 = d1 if w2 is None else sparse.csr_matrix((w2, (rows, cols)),
+                                                 shape=(n_rows, n_cols))
+    return (d1 @ d2.T).astype(dtype).toarray()
+
+
+def _add_sym(m: torch.Tensor, a: torch.Tensor, dense: np.ndarray) -> None:
+    """m += a + a^T + dense, in place and in that order (the reference's
+    order of operations; at 16K animals every temporary is another GB)."""
+    m.add_(a).add_(a.T).add_(torch.from_numpy(dense).to(m.device))
+
+
 def grm(g: GenoMatrix, scale: bool = True, dtype=torch.float32,
         correct_missing: Optional[bool] = None,
         pair_denominator: bool = False) -> torch.Tensor:
     """VanRaden genomic relationship matrix [indiv, indiv] via the Schlather
-    decomposition.  ``correct_missing`` defaults, as in the reference, to
-    whether the panel carries missing information; the corrected path and
-    ``pair_denominator`` (which implies it) need ops/sparse (ROADMAP A8)."""
+    decomposition.
+
+    ``correct_missing`` (default: on when the panel carries missing
+    information) makes each missing entry contribute exactly 0: exact
+    centering by 2f, Zc Zc^T = Z Z^T - u 1^T - 1 u^T + 4 sum f^2 with
+    u = Z (2f), plus (D Zc^T) + (D Zc^T)^T + D D^T for the add-back D.
+    ``pair_denominator`` (plink --make-rel missingness) divides each pair by
+    its own sum of 2pq over the SNPs called in both (one weighted
+    crossproduct of the called-indicator packing, B9) instead of the global
+    2 sum p(1-p); it needs missing info, implies the correction and ignores
+    ``scale``; pairs sharing no called SNP come back 0."""
+    n = g.indiv
+    m = snp_crossprod(g).to(dtype)
     if pair_denominator:
         if g.miss_rows_n is None:
             raise ValueError("pair_denominator requires a panel built with "
                              "keep_missing_info=True")
-        raise NotImplementedError(f"grm(pair_denominator=True) {_A8}")
+        correct_missing = True
     if _resolve_missing(g, correct_missing):
-        raise NotImplementedError(f"grm(correct_missing=True) {_A8}")
-    n = g.indiv
-    m = snp_crossprod(g).to(dtype)
-    colsum = m.sum(dim=1)
-    total = colsum.sum()
-    # in place (same order of operations as the reference): at 16K animals
-    # each temporary would be another GB of device memory
-    m.sub_(colsum[None, :] / n).sub_(colsum[:, None] / n).add_(total / (n * n))
+        f = g.freq.to(dtype)
+        u = dgemm(g, 2.0 * g.freq[:, None], trans="n", center=False,
+                  precision="f32")[:n, 0].to(dtype)
+        # in place, in the reference's order of operations
+        m.sub_(u[None, :]).sub_(u[:, None]).add_(4.0 * torch.sum(f * f))
+        ia, ja, w, d2, (mi, ms) = _missing_d_csr(g)
+        a = sparse_times_geno(g, ia, ja, w, n, trans_geno="t",
+                              precision="f32").to(dtype)      # D Z^T
+        a.sub_(torch.as_tensor(d2, dtype=dtype, device=a.device)[:, None])
+        _add_sym(m, a, _ddt_dense(mi, ms, w, n, g.snps, dtype=_np(dtype)))
+        del a
+    else:
+        colsum = m.sum(dim=1)
+        total = colsum.sum()
+        # in place (same order of operations as the reference): at 16K
+        # animals each temporary would be another GB of device memory
+        m.sub_(colsum[None, :] / n).sub_(colsum[:, None] / n).add_(
+            total / (n * n))
+    if pair_denominator:
+        f32 = g.freq.to(torch.float32)
+        denom = packed_crossprod_weighted(
+            called_indicator_packing(g), 2.0 * f32 * (1.0 - f32))[:n, :n]
+        m.div_(torch.clamp(denom, min=1e-30).to(dtype))
+        return m.masked_fill_(denom <= 0, 0.0)
     if scale:
         m.div_(g.sigma2.to(dtype))
     return m
@@ -229,12 +302,34 @@ def ld(g: GenoMatrix, dtype=torch.float32, squared: bool = False,
     """LD matrix: the centered SNP-SNP correlation r of allele counts
     [snps, snps] (r^2 with ``squared``), from one K3 crossproduct of the
     SNP-major packing; finished in place (at 16K SNPs every temporary is
-    another GB).  ``correct_missing`` needs ops/sparse (ROADMAP A8)."""
-    if _resolve_missing(g, correct_missing):
-        raise NotImplementedError(f"ld(correct_missing=True) {_A8}")
+    another GB).  ``correct_missing`` (default: on when the panel carries
+    missing information) centers exactly by 2f and adds the missing
+    entries' add-back D, so the crossproduct is (Zc + D)^T (Zc + D) and the
+    diagonal an exact variance."""
+    n = g.indiv
     m = snp_crossprod(g, snpmajor_output=True).to(dtype)
     f = g.freq.to(dtype)
-    m.addr_((4.0 * g.indiv) * f, f, alpha=-1.0)   # M -= 4n f f^T, no temporary
+    if not _resolve_missing(g, correct_missing):
+        m.addr_((4.0 * n) * f, f, alpha=-1.0)   # M -= 4n f f^T, no temporary
+        return _ld_finish(m, squared)
+    # Zc^T Zc = Z^T Z - (2f) s^T - s (2f)^T + 4n f f^T, s = Z^T 1
+    s = g.snp_sums().to(dtype)
+    m.addr_(2.0 * f, s, alpha=-1.0).addr_(s, 2.0 * f, alpha=-1.0)
+    m.addr_((4.0 * n) * f, f)
+    _, _, w, _, (mi, ms) = _missing_d_csr(g)
+    # D^T Zc = D^T Z - (D^T 1)(2f)^T; the CSR of D^T grouped by SNP
+    order = np.argsort(ms, kind="stable")
+    mi_s, ms_s = mi[order], ms[order]
+    w_s = 2.0 * _host(g.freq)[ms_s]
+    ia_t = np.concatenate(
+        [[0], np.cumsum(np.bincount(ms_s, minlength=g.snps))]) + 1
+    a = sparse_times_geno(g, ia_t, mi_s + 1, w_s, g.snps, trans_geno="n",
+                          precision="f32").to(dtype)          # D^T Z
+    colsum_d = torch.as_tensor(np.bincount(ms, weights=w, minlength=g.snps),
+                               dtype=dtype, device=a.device)
+    a.addr_(colsum_d, 2.0 * f, alpha=-1.0)
+    _add_sym(m, a, _ddt_dense(ms, mi, w, g.snps, n, dtype=_np(dtype)))
+    del a
     return _ld_finish(m, squared)
 
 
@@ -696,9 +791,11 @@ def grm_yang(g: GenoMatrix, block: int = 2048, dtype=torch.float32,
     Z W Z^T - u 1^T - 1 u^T + (2f)^T W (2f), u = Z W (2f) (one f32-tier
     dgemm); near-monomorphic SNPs (2pq ~ 0) get weight 0.
     ``pair_denominator=True`` divides each pair by its own co-called SNP
-    count (needs a panel that tracks missing info).  A panel that records
-    missing entries needs the sparse correction (ROADMAP A8).  ``block`` is
-    kept for the reference's signature."""
+    count (needs a panel that tracks missing info).  On a panel that records
+    missing entries, sparse add-back terms make each missing entry
+    contribute exactly 0 (GCTA's sum over called SNPs): (D W) Zc^T, its
+    transpose and a host (D W) D^T.  ``block`` is kept for the reference's
+    signature."""
     n = g.indiv
     f = _host(g.freq)
     pq2 = 2.0 * f * (1.0 - f)
@@ -706,8 +803,6 @@ def grm_yang(g: GenoMatrix, block: int = 2048, dtype=torch.float32,
     if pair_denominator and g.miss_rows_n is None:
         raise ValueError("pair_denominator requires a panel built with "
                          "keep_missing_info=True")
-    if g.miss_rows_n is not None and g.miss_rows_n.shape[0]:
-        raise NotImplementedError(f"grm_yang on missing entries {_A8}")
     denom = 1.0 if pair_denominator else float(max(int(use.sum()), 1))
     w = np.divide(1.0, pq2 * denom, out=np.zeros_like(pq2), where=use)
     num = packed_crossprod_weighted(g.zq_n, w)[:n, :n]
@@ -716,6 +811,17 @@ def grm_yang(g: GenoMatrix, block: int = 2048, dtype=torch.float32,
     c = np.float32(np.sum(w * (2.0 * f) ** 2))
     # in place, in the reference's order (one GB per temporary at 16K)
     num = num.sub_(u[None, :]).sub_(u[:, None]).add_(float(c)).to(dtype)
+    if g.miss_rows_n is not None and g.miss_rows_n.shape[0]:
+        ia, ja, _, _, (mi, ms) = _missing_d_csr(g)
+        vals = 2.0 * f[ms] * w[ms]           # (D W) entries, CSR row order
+        a = sparse_times_geno(g, ia, ja, vals, n, trans_geno="t",
+                              precision="f32").to(dtype)      # (D W) Z^T
+        d2w = np.zeros(n)
+        np.add.at(d2w, mi, vals * 2.0 * f[ms])   # (D W)(2f) per individual
+        a.sub_(torch.as_tensor(d2w, dtype=dtype, device=a.device)[:, None])
+        _add_sym(num, a, _ddt_dense(mi, ms, vals, n, g.snps, w2=2.0 * f[ms],
+                                    dtype=_np(dtype)))
+        del a
     if pair_denominator:
         counts = pairwise_nonmissing(g, use=use)
         num = torch.where(counts > 0,

@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from miraculix_tpu_torch import _kernels  # noqa: E402
 from miraculix_tpu_torch.ops.common import decode_planar16  # noqa: E402
 from miraculix_tpu_torch.ops.dgemm import (  # noqa: E402
+    packed_matmul_exact, packed_matmul_int8, packed_matmul_int8_plain,
     packed_matmul_tall, packed_matmul_tall_plain, rhs_values)
 from miraculix_tpu_torch.ops.grm import (  # noqa: E402
     packed_crossprod, packed_crossprod_plain, packed_crossprod_rect,
@@ -170,3 +171,82 @@ def test_crossprod_weighted_matches_plain(dev, rows, kw, snps, triangle):
     assert rel(got.double()) <= 4e-6
     if rows > 1:   # one output of a 3-term sum may land on bf16 exactly
         assert rel(control) > 4e-6
+
+
+@pytest.mark.parametrize("rows,kw,cols", [
+    (1, 5, 80), (65, 37, 590), (300, 130, 2080), (16385, 21, 336)])
+@pytest.mark.parametrize("n", [1, 7, 8, 96, 1000])
+def test_matmul_int8_matches_plain(dev, rows, kw, cols, n):
+    """B10 against its plain version, exactly: rows off both tile heights,
+    kw off the 8- and 16-word steps, digit RHS shorter than 16*kw, widths on
+    both tile shapes and ragged column tiles.  The digits are the extremes
+    (-64, 64 and the int8 ends) in every byte lane, against words of all
+    2s and random words."""
+    rng = np.random.default_rng(rows * kw + n)
+    zq = _words(rng, rows, kw)
+    zq[: rows // 2 + 1, : kw // 2 + 1] = int(np.uint32(0xAAAAAAAA).view(
+        np.int32))
+    zq = zq.to(dev)
+    d = rng.choice(np.array([-128, -64, -1, 0, 1, 64, 127]), size=(cols, n))
+    d[::3] = np.where(d[::3] > 0, 64, -64)
+    d = torch.as_tensor(d, dtype=torch.int8, device=dev)
+    got = packed_matmul_int8(zq, d)
+    assert got.shape == (rows, n) and got.dtype == torch.int32
+    assert torch.equal(got, packed_matmul_int8_plain(zq, d))
+
+
+def test_matmul_int8_rejects_what_it_cannot_hold_exactly(dev):
+    zq = _words(np.random.default_rng(0), 64, 8).to(dev)
+    with pytest.raises(ValueError, match=r"\[-128, 127\]"):
+        packed_matmul_int8(zq, torch.full((128, 2), 200, device=dev))
+    with pytest.raises(ValueError, match="overflow"):
+        packed_matmul_int8(torch.zeros((1, 2 ** 20), dtype=torch.int32,
+                                       device=dev),
+                           torch.zeros((1, 1), dtype=torch.int8, device=dev))
+
+
+@pytest.mark.parametrize("kw_cap", [128, 2 ** 19])
+def test_packed_matmul_exact_matches_cpu(dev, kw_cap):
+    """The f64 tier on the card (digits and recombination on the device)
+    against the CPU path and a float64 oracle, with the packed-word axis
+    chunked at 128 words (4 chunks) and unchunked."""
+    rng = np.random.default_rng(kw_cap)
+    zq = _words(rng, 300, 512)
+    b = rng.standard_normal((8000, 3)) * np.exp2(
+        rng.integers(-20, 20, size=(1, 3)))
+    got = packed_matmul_exact(zq.to(dev), b, _kw_cap=kw_cap)
+    cpu = packed_matmul_exact(zq, b, _kw_cap=kw_cap)
+    want = decode_planar16(zq, torch.float64)[:, :8000].numpy() @ b
+    assert got.dtype == np.float64
+    scale = np.abs(want).max()
+    assert np.abs(got - cpu).max() / scale < 1e-12
+    assert np.abs(got - want).max() / scale < 1e-13
+
+
+def test_dgemm_f64_matches_cpu(dev):
+    """dgemm(precision="f64") on the card against the CPU path at 1e-12, in
+    every centering mode, with the missing correction and normalize.  The
+    normalizing scale is the panel's stored f32 sum (as in the reference),
+    whose order of addition differs between the two devices: each side's
+    normalized result is compared times its own scale."""
+    from miraculix_tpu_torch import dgemm, from_dense
+    from miraculix_tpu_torch.io import bed
+
+    g = bed.simulate_genotypes(300, 2000, seed=5, missing_rate=0.02)
+    rng = np.random.default_rng(5)
+    user = rng.standard_normal(2000)
+    panels = {d: from_dense(g, keep_missing_info=True, device=d)
+              for d in ("cpu", dev)}
+    for trans, rows in (("n", 2000), ("t", 300)):
+        b = rng.standard_normal((rows, 12))
+        for center in (False, True, "colmeans", user):
+            for norm in (False, True):
+                got, want = (dgemm(panels[d], b, trans=trans, center=center,
+                                   precision="f64", ignore_missings=False,
+                                   normalize=norm) * (np.sqrt(float(
+                                       panels[d].sigma2 if trans == "t"
+                                       else panels[d].pseudo_sigma2))
+                                       if norm else 1.0)
+                             for d in (dev, "cpu"))
+                assert isinstance(got, np.ndarray) and got.dtype == np.float64
+                assert np.abs(got - want).max() / np.abs(want).max() < 1e-12

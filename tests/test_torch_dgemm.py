@@ -136,7 +136,11 @@ def test_dgemm_vector_rhs_and_errors(panel):
         mt.dgemm(port, np.ones((70, 2)), trans="n")
     with pytest.raises(ValueError, match="precision"):
         mt.dgemm(port, np.ones((400, 2)), precision="exact")
-    with pytest.raises(NotImplementedError, match="ROADMAP B10"):
-        mt.dgemm(port, np.ones((400, 2)), precision="f64")
+    # the f64 tier: the caller's B in float64, numpy float64 out, the
+    # reference's digits and epilogue
+    b = np.random.default_rng(3).standard_normal((400, 2))
+    got = mt.dgemm(port, b, precision="f64")
+    assert isinstance(got, np.ndarray) and got.dtype == np.float64
+    assert _rel(got, mx.dgemm(panel[1], b, precision="f64")) < 1e-12
     # wider RHS run on the wide schedule
     assert mt.dgemm(port, np.ones((400, 65))).shape == (70, 65)

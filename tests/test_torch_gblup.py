@@ -85,9 +85,17 @@ def test_snp_effects_and_predict_match_reference(panel):
 
 
 def test_gblup_rejects_unported_paths(panel):
-    g, _, port = panel
-    y = np.zeros(150)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_gblup.gblup(port, y, solver="dense")
+    """solver="dense" is ported (the reference at 1e-4); unknown solvers and
+    the sharded and streamed containers are rejected."""
+    g, ref, port = panel
+    y, _ = ref_gblup.simulate_phenotypes(g, h2=0.5, seed=5)
+    want = ref_gblup.gblup(ref, y, h2=0.5, n_pcs=2, solver="dense", seed=3)
+    got = pt_gblup.gblup(port, y, h2=0.5, n_pcs=2, solver="dense", seed=3)
+    assert _rel(got.g_hat, want.g_hat) < 1e-4
+    assert _rel(got.fitted, want.fitted) < 1e-4
+    assert np.abs(got.beta - want.beta).max() < 1e-4 * np.abs(want.beta).max()
+    assert got.cg_iterations == 0 and got.converged
+    with pytest.raises(ValueError, match="solver"):
+        pt_gblup.gblup(port, y, solver="lu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt_gblup.randomized_grm_pca(object())

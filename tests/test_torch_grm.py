@@ -66,14 +66,18 @@ def test_grm_diag_and_missing_paths():
     g = bed.simulate_genotypes(90, 300, seed=9, missing_rate=0.05)
     port = mt.from_dense(g, device=CPU)
     tracked = mt.from_dense(g, keep_missing_info=True, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        mt.grm(tracked)
+    # a tracked panel gets the corrected GRM by default, as in the reference
+    ref = mx.from_dense(g, keep_missing_info=True)
+    want = np.asarray(mx.grm(ref), np.float64)
+    got = mt.grm(tracked).numpy()
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-4
     # as the reference: pair denominators need a panel that tracks missing
-    # info (ValueError); on one that does they need ops/sparse
+    # info (ValueError)
     with pytest.raises(ValueError, match="keep_missing_info"):
         mt.grm(port, pair_denominator=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        mt.grm(tracked, pair_denominator=True)
+    want = np.asarray(mx.grm(ref, pair_denominator=True), np.float64)
+    got = mt.grm(tracked, pair_denominator=True).numpy()
+    assert np.abs(got - want).max() / np.abs(want).max() < 5e-6
     with pytest.raises(ValueError, match="keep_missing_info"):
         mt.grm(port, correct_missing=True)
     np.testing.assert_array_equal(mt.grm(tracked, correct_missing=False),

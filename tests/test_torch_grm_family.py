@@ -187,8 +187,11 @@ def test_grm_yang_matches_reference(build):
 
 def test_grm_yang_missing_paths():
     g = bed.simulate_genotypes(110, 600, seed=36, missing_rate=0.05)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        mt.grm_yang(mt.from_dense(g, keep_missing_info=True, device=CPU))
+    # missing entries corrected exactly, as in the reference
+    want = np.asarray(ref_grm.grm_yang(mx.from_dense(g,
+                                                     keep_missing_info=True)))
+    got = mt.grm_yang(mt.from_dense(g, keep_missing_info=True, device=CPU))
+    assert _rel(got.numpy(), want) < 5e-6
     with pytest.raises(ValueError, match="keep_missing_info"):
         mt.grm_yang(mt.from_dense(g, device=CPU), pair_denominator=True)
     # a tracked panel that records no missing entry: pair denominators are

@@ -69,8 +69,8 @@ def test_ld_matches_reference(panel, build):
 def test_ld_missing_paths(missing_panel):
     g, _ = missing_panel
     tracked = mt.from_dense(g, keep_missing_info=True, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        mt.ld(tracked)
+    # corrected by default on a tracked panel, as in the reference
+    assert _maxdiff(mt.ld(tracked).numpy(), mx.ld(missing_panel[1])) < 1e-4
     with pytest.raises(ValueError, match="keep_missing_info"):
         mt.ld(mt.from_dense(g, device=CPU), correct_missing=True)
     # the uncorrected path is the reference's
