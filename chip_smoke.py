@@ -505,17 +505,21 @@ def main() -> int:
 
         # B10 at the f64 paths' products: the 't' and 'n' products of
         # grm_matvec_f64 at 12 columns (8 digits each: 96 digit columns)
-        # and the 'n' product at one column (8); digits over [-64, 64] with
-        # both ends in every plane (the JSON keeps the first case)
+        # and of the one-column refined solve and g_hat (8); digits over
+        # [-64, 64] with both ends in every plane (the JSON keeps the first
+        # case).  At 8 columns the 64 x 64 tile is checked and timed beside
+        # the 256 x 16 one the launcher picks there.
         for label, zq, cols, ncol in (("n", zn, N_SNPS, 96),
                                       ("t", gm.zq_t, N_INDIV, 96),
-                                      ("n", zn, N_SNPS, 8)):
+                                      ("n", zn, N_SNPS, 8),
+                                      ("t", gm.zq_t, N_INDIV, 8)):
             d = torch.as_tensor(rng.integers(-64, 65, size=(cols, ncol)),
                                 dtype=torch.int8, device=dev)
             d[::7] = 64
             d[3::7] = -64
+            want = packed_matmul_int8_plain(zq, d)
             exact("matmul_int8", f"{label} ncol={ncol}",
-                  packed_matmul_int8(zq, d), packed_matmul_int8_plain(zq, d))
+                  packed_matmul_int8(zq, d), want)
             d8 = decode_planar16(zq, torch.int8)[:, :cols]
             dpad = torch.zeros((cols, -(-ncol // 8) * 8), dtype=torch.int8,
                                device=dev)
@@ -530,7 +534,18 @@ def main() -> int:
                         10)
             if "ms" not in results["matmul_int8"]:
                 record("matmul_int8", 0.0, t)
-            del d, d8, dpad
+            if ncol <= _kernels.INT8_NARROW_COLS:
+                narrow_cols = _kernels.INT8_NARROW_COLS
+                _kernels.INT8_NARROW_COLS = 0       # the 64 x 64 tile
+                try:
+                    exact("matmul_int8", f"{label} ncol={ncol} tile 64x64",
+                          packed_matmul_int8(zq, d), want)
+                    wms = event_ms(lambda: packed_matmul_int8(zq, d), 10)
+                finally:
+                    _kernels.INT8_NARROW_COLS = narrow_cols
+                log(f"time matmul_int8 {label} ncol={ncol}: tile 256x16 "
+                    f"{t['ms']:.4f} ms, tile 64x64 {wms:.4f} ms")
+            del d, d8, dpad, want
             torch.cuda.empty_cache()
         del gm, zn
         torch.cuda.empty_cache()

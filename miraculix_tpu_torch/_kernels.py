@@ -125,9 +125,10 @@ def _load():
             lib.mx_crossprod_weighted.argtypes = [vp, i32, i32, vp, i32, vp,
                                                   vp]
             lib.mx_crossprod_weighted.restype = i32
-            lib.mx_matmul_int8_blocks.argtypes = [i32, i32]
+            lib.mx_matmul_int8_blocks.argtypes = [i32, i32, i32]
             lib.mx_matmul_int8_blocks.restype = i64
-            lib.mx_matmul_int8.argtypes = [vp, i32, i32, vp, i32, i32, vp, vp]
+            lib.mx_matmul_int8.argtypes = [vp, i32, i32, vp, i32, i32, i32, vp,
+                                           vp]
             lib.mx_matmul_int8.restype = i32
             _lib = lib
     return _lib
@@ -153,6 +154,7 @@ CROSSPROD_TILE = 64      # output tile edge of csrc/crossprod.cu
 TALL_WARPS_PER_SM = 128  # launched warps per SM the contraction split aims at
 WIDE_BLOCKS_PER_SM = 8   # launched wide blocks per SM the split aims at
 INT8_BLOCKS_PER_SM = 4   # launched digit-product blocks per SM, likewise
+INT8_NARROW_COLS = 16    # digit RHS up to this width take B10's 256 x 16 tile
 
 
 def _sms(device) -> int:
@@ -336,14 +338,15 @@ def matmul_int8(zq: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
                          f"zq {tuple(zq.shape)}")
     dev = zq.device
     dp = digit_words(d, kw)
-    blocks = lib.mx_matmul_int8_blocks(rows, n)
+    narrow = int(n <= INT8_NARROW_COLS)
+    blocks = lib.mx_matmul_int8_blocks(rows, n, narrow)
     splits = max(1, min(-(-INT8_BLOCKS_PER_SM * _sms(dev) // blocks),
                         kw // 256, 65535))
     out = (torch.zeros if splits > 1 else torch.empty)(
         (rows, n), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     LAUNCHES["matmul_int8"] += 1
-    _raise_if(lib.mx_matmul_int8(_ptr(zq), rows, kw, _ptr(dp), n, splits,
-                                 _ptr(out), ctypes.c_void_p(stream)),
+    _raise_if(lib.mx_matmul_int8(_ptr(zq), rows, kw, _ptr(dp), n, narrow,
+                                 splits, _ptr(out), ctypes.c_void_p(stream)),
               "matmul_int8")
     return out

@@ -23,7 +23,8 @@
 //     KT-word step a block expands its rows' words once into shared memory
 //     (reused by BN columns) and stages the matching digit words beside them;
 //   - two tile shapes: 64 x 64 for wide digit RHS, and 256 x 16 for narrow
-//     ones (a one-column f64 product has 8 digit columns);
+//     ones (a one-column f64 product has 8 digit columns); the launcher
+//     picks one;
 //   - a grid dimension over column tiles takes any n; the contraction splits
 //     over gridDim.z where the row and column tiles alone would not fill the
 //     card, and the splits add their int32 partials with atomicAdd (integer
@@ -107,8 +108,6 @@ matmul_int8_kernel(const uint32_t* __restrict__ zq, int rows, int kw,
   }
 }
 
-constexpr int NARROW = 16;  // digit RHS up to this width take the 256 x 16 tile
-
 template <int BM, int BN>
 long long tiles(int rows, int n) {
   return (long long)((rows + BM - 1) / BM) * ((n + BN - 1) / BN);
@@ -116,18 +115,19 @@ long long tiles(int rows, int n) {
 
 }  // namespace
 
-// Blocks of one contraction split for an [rows, n] output.
-extern "C" long long mx_matmul_int8_blocks(int rows, int n) {
-  return n <= NARROW ? tiles<256, 16>(rows, n) : tiles<64, 64>(rows, n);
+// Blocks of one contraction split for an [rows, n] output on the narrow
+// (256 x 16) or the wide (64 x 64) tile.
+extern "C" long long mx_matmul_int8_blocks(int rows, int n, int narrow) {
+  return narrow ? tiles<256, 16>(rows, n) : tiles<64, 64>(rows, n);
 }
 
 // out: int32 [rows, n], zeroed by the caller when splits > 1.  Returns the
 // cudaError_t of the launch.
 extern "C" int mx_matmul_int8(const void* zq, int rows, int kw, const void* dp,
-                              int n, int splits, void* out, void* stream) {
+                              int n, int narrow, int splits, void* out,
+                              void* stream) {
   if (rows < 1 || kw < 1 || n < 1 || splits < 1 || splits > 65535)
     return (int)cudaErrorInvalidValue;
-  const bool narrow = n <= NARROW;
   const int bm = narrow ? 256 : 64, bn = narrow ? 16 : 64;
   const int kt = narrow ? 8 : 16;
   // whole KT steps per split, so that no split starts mid-step

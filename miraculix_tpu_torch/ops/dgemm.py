@@ -294,25 +294,23 @@ def dgemm(g: GenoMatrix, b, trans: str = "n", center=True,
             f"B has {b.shape[0]} rows, expected {cols} for trans='{trans}'")
     if mode == "colmeans" and g.pseudo_freq is None:
         raise ValueError("colmeans centering needs pseudo_freq")
-    if precision == "f64":
-        return _dgemm_f64(g, b, zq, rows, trans, mode, user_vec, normalize,
-                          ignore_missings)
-
-    tall = (b.shape[1] <= TALL_LIMITS[precision]
+    tall = (precision != "f64" and b.shape[1] <= TALL_LIMITS[precision]
             and b.shape[0] <= zq_other.shape[0])
     if mode != "none":
         # per-row: the center varies along the contraction axis (the
         # epilogue needs c^T B); otherwise along the output axis (1^T B)
         per_row = (mode in ("rowmeans", "user")) if trans == "n" \
             else mode == "colmeans"
-        ovec = (2.0 * g.freq if mode == "rowmeans"
-                else 2.0 * g.pseudo_freq if mode == "colmeans" else user_vec)
-        cv = ovec if per_row else torch.ones(cols, dtype=torch.float32,
-                                             device=dev)
+        ovec = (2.0 * g.freq.to(dtype) if mode == "rowmeans"
+                else 2.0 * g.pseudo_freq.to(dtype) if mode == "colmeans"
+                else user_vec)
+        cv = ovec if per_row else torch.ones(cols, dtype=dtype, device=dev)
     if tall and precision == "fast" and mode != "none":
         c, v = packed_matmul_tall(zq_other, b, center_vec=cv)
     else:
-        if tall:
+        if precision == "f64":
+            c = packed_matmul_f64(zq, b)
+        elif tall:
             c = packed_matmul_tall(zq_other, b, mode=TALL_MODES[precision])
         else:
             c = packed_matmul(zq, b, split=precision == "fast",
@@ -325,33 +323,8 @@ def dgemm(g: GenoMatrix, b, trans: str = "n", center=True,
             c = _missing_correction(g, b, c, trans, mode, user_vec)
     if normalize:
         s2 = g.sigma2 if trans == "t" else g.pseudo_sigma2
-        c = c / torch.sqrt(s2)
-    return c
-
-
-def _dgemm_f64(g: GenoMatrix, b, zq, rows: int, trans: str, mode: str,
-               user_vec, normalize: bool, ignore_missings: bool):
-    """The f64 tier of :func:`dgemm`: exact digit product and the
-    reference's epilogue, in float64 on the device; numpy float64 out."""
-    c = packed_matmul_f64(zq, b)[:rows]
-    if mode in ("rowmeans", "user"):
-        cvec = 2.0 * g.freq.double() if mode == "rowmeans" else user_vec
-        if trans == "n":
-            c = c - (cvec @ b)[None, :]
-        else:
-            c = c - cvec[:, None] * b.sum(dim=0)[None, :]
-    elif mode == "colmeans":
-        pvec = 2.0 * g.pseudo_freq.double()
-        if trans == "n":
-            c = c - pvec[:rows, None] * b.sum(dim=0)[None, :]
-        else:
-            c = c - (pvec @ b)[None, :]
-    if mode != "none" and not ignore_missings and g.miss_rows_n is not None:
-        c = _missing_correction(g, b, c, trans, mode, user_vec)
-    if normalize:
-        s2 = g.sigma2 if trans == "t" else g.pseudo_sigma2
-        c = c / torch.sqrt(s2.double())
-    return c.cpu().numpy()
+        c = c / torch.sqrt(s2.to(dtype))
+    return c.cpu().numpy() if precision == "f64" else c
 
 
 def _missing_correction(g: GenoMatrix, b, c, trans: str, mode: str,

@@ -25,20 +25,6 @@ from .common import decode_planar16
 from .dgemm import packed_matmul, packed_matmul_f64, packed_matmul_tall
 
 
-def csr_to_dense(row_ptr, col_idx, vals, n_rows: int, n_cols: int,
-                 index_base: int = 1) -> np.ndarray:
-    """CSR triplets -> dense float64 numpy [n_rows, n_cols]."""
-    row_ptr = np.asarray(row_ptr, dtype=np.int64) - index_base
-    col_idx = np.asarray(col_idx, dtype=np.int64) - index_base
-    vals = np.asarray(vals, dtype=np.float64)
-    if len(row_ptr) != n_rows + 1:
-        raise ValueError(f"row_ptr must have {n_rows + 1} entries")
-    dense = np.zeros((n_rows, n_cols), dtype=np.float64)
-    rows = np.repeat(np.arange(n_rows), np.diff(row_ptr))
-    np.add.at(dense, (rows, col_idx), vals)
-    return dense
-
-
 def _csr_flat(row_ptr, col_idx, vals, n_rows: int, index_base: int):
     """CSR -> flat 0-based (row_ids, col_ids, vals) numpy triplets."""
     row_ptr = np.asarray(row_ptr, dtype=np.int64) - index_base
@@ -48,6 +34,15 @@ def _csr_flat(row_ptr, col_idx, vals, n_rows: int, index_base: int):
         raise ValueError(f"row_ptr must have {n_rows + 1} entries")
     row_ids = np.repeat(np.arange(n_rows), np.diff(row_ptr))
     return row_ids, col_ids, vals
+
+
+def csr_to_dense(row_ptr, col_idx, vals, n_rows: int, n_cols: int,
+                 index_base: int = 1) -> np.ndarray:
+    """CSR triplets -> dense float64 numpy [n_rows, n_cols]."""
+    rows, cols, vals = _csr_flat(row_ptr, col_idx, vals, n_rows, index_base)
+    dense = np.zeros((n_rows, n_cols), dtype=np.float64)
+    np.add.at(dense, (rows, cols), vals)
+    return dense
 
 
 def _segsum_apply(zq: torch.Tensor, out_rows: torch.Tensor,

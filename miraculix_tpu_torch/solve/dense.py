@@ -3,8 +3,10 @@ relationship-matrix solve, inverse and square-root helpers.
 
 Torch twin of ``miraculix_tpu.solve.dense`` on ``torch.linalg`` (cuSOLVER on
 the card): the plain large linear algebra that the reference leaves to XLA.
-Inputs are tensors or arrays; they are computed in their own type on their
-own device (arrays go to the CPU) and returned as tensors.  A Cholesky
+Inputs are tensors or arrays, computed in their own type: a tensor stays on
+its device, an array goes to ``device`` (the CUDA card unless the caller
+names another, as the port's other entry points do), and the results are
+tensors there.  A Cholesky
 factorization of a matrix that is not positive definite yields NaNs, as the
 reference's does, instead of raising.
 """
@@ -14,16 +16,22 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..geno import _device
+
 
 class DenseSolveResult(NamedTuple):
     x: torch.Tensor
     logdet: Optional[torch.Tensor] = None
 
 
-def _t(a, like: Optional[torch.Tensor] = None) -> torch.Tensor:
-    if like is None:
-        return torch.as_tensor(a)
-    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+def _t(a, like: Optional[torch.Tensor] = None, device=None) -> torch.Tensor:
+    """``a`` as a tensor: of ``like``'s type and device when given, else a
+    tensor as it is and an array on ``_device(device)``."""
+    if like is not None:
+        return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+    if isinstance(a, torch.Tensor):
+        return a
+    return torch.as_tensor(a, device=_device(device))
 
 
 def _eye(a: torch.Tensor) -> torch.Tensor:
@@ -36,12 +44,12 @@ def _cholesky(a: torch.Tensor) -> torch.Tensor:
     return torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
 
 
-def dense_solve(a, b, calc_logdet: bool = False,
-                jitter: float = 0.0) -> DenseSolveResult:
+def dense_solve(a, b, calc_logdet: bool = False, jitter: float = 0.0,
+                device=None) -> DenseSolveResult:
     """Solve A X = B for symmetric positive-definite A by Cholesky, with the
     log-determinant 2 sum(log diag L) on request; ``jitter`` adds eps I
     first."""
-    a = _t(a)
+    a = _t(a, device=device)
     if jitter:
         a = a + jitter * _eye(a)
     chol = _cholesky(a)
@@ -58,14 +66,15 @@ def dense_solve(a, b, calc_logdet: bool = False,
     return DenseSolveResult(x, logdet)
 
 
-def chol2inv(a) -> torch.Tensor:
+def chol2inv(a, device=None) -> torch.Tensor:
     """Inverse of an SPD matrix from its Cholesky factorization."""
-    return torch.cholesky_inverse(_cholesky(_t(a)))
+    return torch.cholesky_inverse(_cholesky(_t(a, device=device)))
 
 
-def x_cinv_y_logdet(x, c, y) -> Tuple[torch.Tensor, torch.Tensor]:
+def x_cinv_y_logdet(x, c, y,
+                    device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """X^T C^-1 Y and log det C from one factorization."""
-    chol = _cholesky(_t(c))
+    chol = _cholesky(_t(c, device=device))
     ciy = torch.cholesky_solve(_t(y, chol), chol)
     logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol)))
     return _t(x, chol).T @ ciy, logdet
@@ -76,10 +85,10 @@ class RelMatResult(NamedTuple):
     yhat: Optional[torch.Tensor] = None
 
 
-def solve_relmat(a, tau, v, beta=None,
-                 compute_yhat: bool = True) -> RelMatResult:
+def solve_relmat(a, tau, v, beta=None, compute_yhat: bool = True,
+                 device=None) -> RelMatResult:
     """GBLUP helper: solve (A + tau I) x = v and return yhat = A x + beta."""
-    a = _t(a)
+    a = _t(a, device=device)
     x = dense_solve(a + _t(tau, a) * _eye(a), v).x
     yhat = None
     if compute_yhat:
@@ -89,28 +98,28 @@ def solve_relmat(a, tau, v, beta=None,
     return RelMatResult(x, yhat)
 
 
-def sqrt_posdef(a) -> torch.Tensor:
+def sqrt_posdef(a, device=None) -> torch.Tensor:
     """Symmetric square root of an SPD matrix by eigendecomposition."""
-    w, q = torch.linalg.eigh(_t(a))
+    w, q = torch.linalg.eigh(_t(a, device=device))
     w = torch.clamp(w, min=0.0)
     return (q * torch.sqrt(w)[None, :]) @ q.T
 
 
-def sqrt_rhs(a, b) -> torch.Tensor:
+def sqrt_rhs(a, b, device=None) -> torch.Tensor:
     """A^(1/2) B without forming the square root."""
-    w, q = torch.linalg.eigh(_t(a))
+    w, q = torch.linalg.eigh(_t(a, device=device))
     w = torch.clamp(w, min=0.0)
     return q @ (torch.sqrt(w)[:, None] * (q.T @ _t(b, q)))
 
 
 def solve_posdef(a, b, method: str = "auto", calc_logdet: bool = False,
-                 jitter: float = 0.0,
-                 eigen_floor: float = 0.0) -> DenseSolveResult:
+                 jitter: float = 0.0, eigen_floor: float = 0.0,
+                 device=None) -> DenseSolveResult:
     """Positive-(semi)definite solve with graceful degradation:
     "cholesky" (NaN where A is not positive definite), "eigh" (eigenvalues
     at or below ``eigen_floor`` dropped: the rank-deficient path), "lu", or
     "auto" (Cholesky, then eigh when its result is not finite)."""
-    a = _t(a)
+    a = _t(a, device=device)
     if jitter:
         a = a + jitter * _eye(a)
     b = _t(b, a)

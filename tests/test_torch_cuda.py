@@ -195,6 +195,21 @@ def test_matmul_int8_matches_plain(dev, rows, kw, cols, n):
     assert torch.equal(got, packed_matmul_int8_plain(zq, d))
 
 
+@pytest.mark.parametrize("rows,kw,cols", [(65, 37, 590), (16385, 21, 336)])
+@pytest.mark.parametrize("n", [1, 8, 16])
+def test_matmul_int8_wide_tile_at_narrow_widths(dev, monkeypatch, rows, kw,
+                                                cols, n):
+    """The 64 x 64 tile where the launcher would pick the 256 x 16 one."""
+    monkeypatch.setattr(_kernels, "INT8_NARROW_COLS", 0)
+    rng = np.random.default_rng(rows + n)
+    zq = _words(rng, rows, kw).to(dev)
+    d = torch.as_tensor(rng.choice(np.array([-64, -1, 0, 1, 64]),
+                                   size=(cols, n)), dtype=torch.int8,
+                        device=dev)
+    assert torch.equal(packed_matmul_int8(zq, d),
+                       packed_matmul_int8_plain(zq, d))
+
+
 def test_matmul_int8_rejects_what_it_cannot_hold_exactly(dev):
     zq = _words(np.random.default_rng(0), 64, 8).to(dev)
     with pytest.raises(ValueError, match=r"\[-128, 127\]"):
@@ -250,3 +265,22 @@ def test_dgemm_f64_matches_cpu(dev):
                              for d in (dev, "cpu"))
                 assert isinstance(got, np.ndarray) and got.dtype == np.float64
                 assert np.abs(got - want).max() / np.abs(want).max() < 1e-12
+
+
+def test_dense_solvers_put_arrays_on_the_card(dev):
+    """numpy inputs of the dense solvers go to the card unless the caller
+    names another device, and agree with the CPU's results."""
+    from miraculix_tpu_torch import solve
+
+    rng = np.random.default_rng(3)
+    m = rng.standard_normal((40, 40))
+    a, b = m @ m.T + 40.0 * np.eye(40), rng.standard_normal((40, 2))
+    for fn, args in ((solve.dense_solve, (a, b)), (solve.chol2inv, (a,)),
+                     (solve.sqrt_posdef, (a,)), (solve.sqrt_rhs, (a, b)),
+                     (solve.solve_posdef, (a, b)),
+                     (solve.solve_relmat, (a, 0.7, b[:, 0])),
+                     (solve.x_cinv_y_logdet, (b, a, b))):
+        got, want = fn(*args)[0], fn(*args, device="cpu")[0]
+        assert got.is_cuda and got.dtype == torch.float64
+        assert float((got.cpu() - want).abs().max()) <= 1e-10 * float(
+            want.abs().max())

@@ -20,6 +20,18 @@ from miraculix_tpu_torch.ops.dgemm import packed_matmul_tall_plain  # noqa: E402
 
 CPU = "cpu"  # the port's panels are built on the CPU in these tests
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The panels are small: one torch thread runs their many small ops
+    without the thread contention of a loaded host (several test workers
+    each starting one thread per core)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REF_RTOL, ORACLE_RTOL = 1e-4, 1e-5
 
 

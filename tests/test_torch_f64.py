@@ -296,3 +296,23 @@ def test_dense_solvers_match_reference(case):
     for got, want in pairs:
         assert got.dtype == torch.float64
         assert _rel(got.numpy(), want) < 1e-10
+
+
+def test_dense_solvers_put_arrays_on_the_requested_device(monkeypatch):
+    """numpy inputs go to ``device`` (the card unless another is named),
+    tensors stay on their own device."""
+    rng = np.random.default_rng(11)
+    a, b = _spd(rng, 20, 20.0), rng.standard_normal((20, 3))
+    x = pt_solve.dense_solve(a, b, device=CPU).x
+    assert x.device.type == "cpu" and x.dtype == torch.float64
+    assert _rel(x.numpy(), np.linalg.solve(a, b)) < 1e-10
+    for fn, args in ((pt_solve.chol2inv, (a,)), (pt_solve.sqrt_posdef, (a,)),
+                     (pt_solve.sqrt_rhs, (a, b)),
+                     (pt_solve.solve_posdef, (a, b)),
+                     (pt_solve.solve_relmat, (a, 0.7, b[:, 0])),
+                     (pt_solve.x_cinv_y_logdet, (b, a, b))):
+        assert fn(*args, device=CPU)[0].device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt_solve.dense_solve(a, b)
+    assert pt_solve.dense_solve(torch.as_tensor(a), b).x.device.type == "cpu"

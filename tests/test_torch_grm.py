@@ -21,6 +21,17 @@ from miraculix_tpu_torch.ops.grm import packed_crossprod_plain  # noqa: E402
 CPU = "cpu"  # the port's panels are built on the CPU in these tests
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The panels are small: one torch thread runs their many small ops
+    without the thread contention of a loaded host (several test workers
+    each starting one thread per core)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("indiv,snps", [(300, 1000), (700, 1500)])
 def test_crossprod_plain_equals_reference(indiv, snps):
     g = bed.simulate_genotypes(indiv, snps, seed=indiv)

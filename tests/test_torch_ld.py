@@ -20,6 +20,18 @@ import miraculix_tpu_torch as mt  # noqa: E402
 from miraculix_tpu_torch.ops import grm as pt_grm  # noqa: E402
 
 CPU = "cpu"  # the port's panels are built on the CPU in these tests
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The panels are small: one torch thread runs their many small ops
+    without the thread contention of a loaded host (several test workers
+    each starting one thread per core)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 FIELDS = ("zq_n", "zq_t", "freq", "pseudo_freq", "miss_rows_n",
           "miss_cols_n")
 
