@@ -7,8 +7,10 @@ Builds the CUDA kernels of ``miraculix_tpu_torch/csrc`` and
 1. holds each kernel against its plain torch version on the ``many_indiv``
    panel (65,536 SNPs x 16,384 animals), 'n' and 't', at the shapes the
    main paths launch: the tall dgemm kernel in its split mode with and
-   without the fused center vector and in its bf16 and f32 modes (max error
-   <= 1e-5 of max |plain|), the wide dgemm kernel in its four RHS instances
+   without the fused center vector (1, 12, 18, 32 and 33 columns) and in its
+   bf16 and f32 modes (1, 32 and 128 columns; max error <= 1e-5 of max
+   |plain|), the tall and wide kernels timed side by side at the bf16 and
+   f32 tiers' 65 and 128 columns, the wide dgemm kernel in its four RHS instances
    (fast split, f32, bf16, bf16 hi||lo; error <= 4e-6 of each output's sum
    of |terms|), each against a plain version that rounds B the same way,
    the integer crossproduct (exactly equal), the
@@ -60,13 +62,15 @@ Builds the CUDA kernels of ``miraculix_tpu_torch/csrc`` and
    corrections on a panel with 2% missing genotypes), at 1e-3, or 1e-12
    for the f64 tier.
 
-Earlier lines report per-phase seconds, errors, launch counts, the card's
+Earlier lines report per-phase seconds, errors, launch counts (the tall
+kernel's also by mode and width over the main paths), the card's
 name and power limit, and one JSON object of kernel results; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero and
 prints no result line.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -92,6 +96,11 @@ GWAS_TOL, GWAS_MAXITER = 1e-2, 300   # absolute CG residual norm (|rhs| ~ 1e2)
 N_QTL = 100           # gblup.simulate_phenotypes' default
 LD_WINDOW, LD_R2 = 512, 0.2   # plink --indep-pairwise 512 ... 0.2
 LD_BLOCK = 4096               # ld_windowed's row block: [4096, 4608] products
+# the tall kernel's phase-1 widths: the main paths' (1: the u solve and
+# g_hat; 12: GBLUP's CG right-hand sides; 18: its PCA sketch; 32: the tiers
+# phase; 33: gwas_mixed_loco's CG, the most launched) and the bf16/f32
+# tiers' widest (128)
+TALL_NCOLS = (32, 1, 12, 18, 33, 128)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 and
 # int8 tensor cores, and HBM; a kernel's bound is the larger of ops/peak
@@ -316,13 +325,13 @@ def main() -> int:
             dec = decode_planar16(zq[:contract], torch.float32)  # library's
             ones = torch.ones(contract, device=dev)
             cvs = {"n": 2.0 * gm.freq, "t": ones}
-            for ncol in (32, 1, 128):
+            for ncol in TALL_NCOLS:
                 cases = []
                 if ncol <= 64:   # the split mode's widths (the fast tier)
                     cases += [("tall_dgemm_cv", "centered", cvs[trans],
                                "split"),
                               ("tall_dgemm", "uncentered", None, "split")]
-                if trans == "n" or ncol == 32:
+                if ncol in (1, 128) and trans == "n" or ncol == 32:
                     cases += [("tall_dgemm_bf16", "", None, "bf16"),
                               ("tall_dgemm_f32", "", None, "f32")]
                 for name, label, cv, mode in cases:
@@ -362,6 +371,19 @@ def main() -> int:
                         record(name, 0.0, t)
             del dec
             torch.cuda.empty_cache()
+
+        # the tall/wide crossover of the bf16 and f32 tiers at 'n' (dgemm
+        # sends 65-128 columns to the tall kernel at these tiers): timed
+        # only, both kernels are checked elsewhere
+        for mode, opts in (("bf16", dict(single_bf16=True)),
+                           ("f32", dict(split=False))):
+            for ncol in (65, 128):
+                b = randn(N_SNPS, ncol)
+                tms = event_ms(lambda: packed_matmul_tall(gm.zq_t, b,
+                                                          mode=mode), 5)
+                wms = event_ms(lambda: packed_matmul(gm.zq_n, b, **opts), 5)
+                log(f"time crossover {mode} n ncol={ncol}: tall {tms:.4f} ms, "
+                    f"wide {wms:.4f} ms")
 
         # wide schedule: zq_n for 'n' (rows = animals), zq_t for 't'
         wide_orient = {"n": (gm.zq_n, N_SNPS), "t": (gm.zq_t, N_INDIV)}
@@ -555,12 +577,15 @@ def main() -> int:
         # -- 2. the main GBLUP path, counted -------------------------------
         launches = {k: 0 for k in _kernels.LAUNCHES}
 
+        tall_hist = collections.Counter()   # (mode, n) -> tall launches
+
         def take_counts(phase):
             counts = dict(_kernels.LAUNCHES)
             log(f"launches on the main {phase} path: "
                 f"{ {k: v for k, v in counts.items() if v} }")
             for k, v in counts.items():
                 launches[k] += v
+            tall_hist.update(_kernels.TALL_WIDTHS)
             return counts
 
         _kernels.reset_launch_counts()
@@ -966,6 +991,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     missing = [k for k in SOURCES if launches[k] == 0]
     check(not missing, f"never launched on a main path: {missing}")
+    log("tall launches on the main paths by (mode, n): "
+        + ", ".join(f"{m} {n}: {c}" for (m, n), c in sorted(tall_hist.items())))
 
     # -- 7. GPU vs CPU path on small panels -------------------------------
     small = bed.simulate_genotypes(600, 5000, seed=SEED + 1)

@@ -11,6 +11,7 @@ to its entry of :data:`LAUNCHES`, and raises if the launch failed.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -36,8 +37,11 @@ LAUNCHES = {"tall_dgemm": 0, "tall_dgemm_cv": 0, "tall_dgemm_bf16": 0,
             "wide_dgemm_bf16": 0, "wide_dgemm_hilo": 0, "crossprod": 0,
             "crossprod_rect": 0, "crossprod_tri": 0, "crossprod_weighted": 0,
             "matmul_int8": 0}
-TALL_RHS = {"split": 0, "f32": 0, "bf16": 1}            # B as given / bf16(B)
+TALL_PASSES = {"bf16": 1, "split": 2, "f32": 3}  # bf16 parts of B per mode
 WIDE_RHS = {"split": 0, "f32": 0, "bf16": 1, "hilo": 2}
+
+# (mode, n) -> tall launches since the last reset_launch_counts()
+TALL_WIDTHS: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
 _lib = None
@@ -46,6 +50,7 @@ _lib = None
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    TALL_WIDTHS.clear()
 
 
 def _nvcc() -> str:
@@ -107,10 +112,16 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.mx_tall_warps_per_tile.argtypes = [i32]
-            lib.mx_tall_warps_per_tile.restype = i32
+            lib.mx_tall_tiles.argtypes = [i32, i32, i32]
+            lib.mx_tall_tiles.restype = i32
+            lib.mx_tall_blocks_per_sm.argtypes = [i32, i32]
+            lib.mx_tall_blocks_per_sm.restype = i32
+            lib.mx_tall_parts_bytes.argtypes = [i64, i32, i32]
+            lib.mx_tall_parts_bytes.restype = i64
+            lib.mx_tall_vrows.argtypes = [i64]
+            lib.mx_tall_vrows.restype = i64
             lib.mx_tall_dgemm.argtypes = [vp, i32, vp, i64, i32, vp, vp, vp,
-                                          vp, vp, i32, i32, vp]
+                                          vp, vp, vp, i32, i32, vp]
             lib.mx_tall_dgemm.restype = i32
             lib.mx_wide_chunks.argtypes = [i32]
             lib.mx_wide_chunks.restype = i32
@@ -151,7 +162,7 @@ def _raise_if(err: int, what: str) -> None:
 
 
 CROSSPROD_TILE = 64      # output tile edge of csrc/crossprod.cu
-TALL_WARPS_PER_SM = 128  # launched warps per SM the contraction split aims at
+TALL_WAVES = 1           # resident waves of tall blocks the split aims at
 WIDE_BLOCKS_PER_SM = 8   # launched wide blocks per SM the split aims at
 INT8_BLOCKS_PER_SM = 4   # launched digit-product blocks per SM, likewise
 INT8_NARROW_COLS = 16    # digit RHS up to this width take B10's 256 x 16 tile
@@ -161,11 +172,17 @@ def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def tall_splits(kwi: int, contract: int, n: int, device) -> int:
-    """Contraction splits that launch about TALL_WARPS_PER_SM warps per SM
-    (narrow outputs have too few word tiles to fill the card alone)."""
-    warps = (kwi + 31) // 32 * _load().mx_tall_warps_per_tile(n)
-    want = -(-TALL_WARPS_PER_SM * _sms(device) // warps)
+def tall_splits(kwi: int, contract: int, n: int, passes: int,
+                device) -> int:
+    """Contraction splits that fill TALL_WAVES whole waves of the blocks the
+    card holds at once (narrow outputs have too few word tiles to fill it
+    alone), each split keeping at least 256 contraction rows."""
+    lib = _load()
+    resident = lib.mx_tall_blocks_per_sm(n, passes)
+    if resident < 1:
+        raise RuntimeError("tall_dgemm: the kernel fits no block on an SM")
+    want = TALL_WAVES * resident * _sms(device) // lib.mx_tall_tiles(
+        kwi, n, passes)
     return max(1, min(want, contract // 256, 65535))
 
 
@@ -180,14 +197,15 @@ def wide_splits(rows: int, kw: int, n: int, device) -> int:
 def tall_dgemm(zq: torch.Tensor, b: torch.Tensor, cv=None, mode="split"):
     """K1/K2: ct [n, 16*kwi] (and v [n] when ``cv`` is given).  ``zq`` int32
     [spad, kwi], ``b`` f32 [contract, n] with contract <= spad, ``cv`` f32
-    [contract] (split mode only).  ``mode``: "split" or "f32" (B as given),
-    "bf16" (B rounded once to bf16)."""
+    [contract] (split mode only).  ``mode``: "split" (B's bf16 hi + lo),
+    "bf16" (hi), "f32" (hi + mid + lo): one bf16 tensor-core pass per part.
+    The bf16 parts and the cv partials go through scratch allocated here."""
     lib = _load()
     _check(zq, "zq", torch.int32, 2)
     _check(b, "b", torch.float32, 2)
     spad, kwi = zq.shape
     contract, n = b.shape
-    if mode not in TALL_RHS:
+    if mode not in TALL_PASSES:
         raise ValueError(f"mode must be split/bf16/f32, got {mode!r}")
     if contract > spad or n < 1 or b.device != zq.device:
         raise ValueError(f"tall_dgemm: b {tuple(b.shape)} does not fit zq "
@@ -199,23 +217,27 @@ def tall_dgemm(zq: torch.Tensor, b: torch.Tensor, cv=None, mode="split"):
         if cv.shape[0] != contract:
             raise ValueError("cv must have one entry per contraction row")
     dev = zq.device
-    splits = tall_splits(kwi, contract, n, dev)
+    passes = TALL_PASSES[mode]
+    splits = tall_splits(kwi, contract, n, passes, dev)
     ct = torch.empty((n, 16 * kwi), dtype=torch.float32, device=dev)
-    v = torch.empty(n, dtype=torch.float32, device=dev) if cv is not None \
-        else None
-    work = vwork = None
+    parts = torch.empty(lib.mx_tall_parts_bytes(contract, n, passes),
+                        dtype=torch.uint8, device=dev)
+    v = vwork = work = None
+    if cv is not None:
+        v = torch.empty(n, dtype=torch.float32, device=dev)
+        vwork = torch.empty((lib.mx_tall_vrows(contract), n),
+                            dtype=torch.float32, device=dev)
     if splits > 1:
         work = torch.empty((splits, n, 16 * kwi), dtype=torch.float32,
                            device=dev)
-        if cv is not None:
-            vwork = torch.empty((splits, n), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     name = "tall_dgemm_cv" if cv is not None else \
         "tall_dgemm" if mode == "split" else f"tall_dgemm_{mode}"
     LAUNCHES[name] += 1
+    TALL_WIDTHS[(mode, n)] += 1
     _raise_if(lib.mx_tall_dgemm(_ptr(zq), kwi, _ptr(b), contract, n, _ptr(cv),
                                 _ptr(ct), _ptr(v), _ptr(work), _ptr(vwork),
-                                splits, TALL_RHS[mode],
+                                _ptr(parts), splits, passes,
                                 ctypes.c_void_p(stream)), name)
     return ct, v
 

@@ -1,4 +1,4 @@
-// Genotype decode, RHS rounding, the split reduction and the upper tile-pair
+// Genotype decode (to f32, or to bf16 mma fragments), RHS rounding, the split reduction and the upper tile-pair
 // walk shared by the packed-product kernels.
 #pragma once
 
@@ -20,6 +20,33 @@ __device__ __forceinline__ void upper_pair(long long p, int& bi, int& bj) {
 // 0x4B000000 | g, so subtracting 2^23 leaves g (no int->float convert)
 __device__ __forceinline__ float geno(uint32_t w, int m) {
   return __int_as_float(((w >> (2 * m)) & 3u) | 0x4B000000u) - 8388608.0f;
+}
+
+// The bf16 pair of one plane of two packed words, from ``pair`` = their
+// low (or high) 16-bit halves side by side (word s in bits 0-15, word s+1
+// in bits 16-31) and the plane's bit offset ``shift`` within the half:
+// ((pair >> shift) & 0x00030003) | 0x43004300 is the pair (128 + g0,
+// 128 + g1), exact since the bf16 ulp on [128, 256) is 1, and one bf16x2
+// subtraction of 128 leaves the codes 0..3.  No int->float convert.
+__device__ __forceinline__ uint32_t plane_pair_bf16(uint32_t pair,
+                                                    int shift) {
+  uint32_t v = ((pair >> shift) & 0x00030003u) | 0x43004300u;
+  const __nv_bfloat162 h = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v),
+                                   __floats2bfloat162_rn(128.f, 128.f));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The A fragment of mma.m16n8k16 (bf16, row-major 16 x 16) whose row m is
+// plane m of one packed word and whose column k is contraction row k: lane
+// (g, t) passes the word of rows 2t, 2t+1, 2t+8, 2t+9 as w0..w3 and
+// shift = 2g, and gets planes g (a[0], a[2]) and g + 8 (a[1], a[3]).
+__device__ __forceinline__ void a_fragment(uint32_t w0, uint32_t w1,
+                                           uint32_t w2, uint32_t w3,
+                                           int shift, uint32_t* a) {
+  a[0] = plane_pair_bf16(__byte_perm(w0, w1, 0x5410), shift);
+  a[1] = plane_pair_bf16(__byte_perm(w0, w1, 0x7632), shift);
+  a[2] = plane_pair_bf16(__byte_perm(w2, w3, 0x5410), shift);
+  a[3] = plane_pair_bf16(__byte_perm(w2, w3, 0x7632), shift);
 }
 
 // x rounded once to bf16, to nearest even, and widened back

@@ -72,7 +72,7 @@ class GBLUPResult:
 def gblup(g: GenoMatrix, y: np.ndarray, h2: float = 0.5, n_pcs: int = 10,
           covariates: Optional[np.ndarray] = None, solver: str = "cg",
           tol: float = 1e-4, maxiter: int = 2000,
-          seed: int = 0) -> GBLUPResult:
+          seed: int = 0, verbose: bool = False) -> GBLUPResult:
     """Full GBLUP estimation (reference ``gblup`` semantics).
 
     ``solver``: "cg" (f32 block CG on the device; ``tol`` bounds each
@@ -80,7 +80,8 @@ def gblup(g: GenoMatrix, y: np.ndarray, h2: float = 0.5, n_pcs: int = 10,
     b' = rhs), "refined" (float64-grade solves by iterative refinement,
     ``tol`` the relative f64 residual, e.g. 1e-10; g_hat by the f64
     matvec), or "dense" (the scaled GRM formed by :func:`grm` and solved by
-    Cholesky in f32)."""
+    Cholesky in f32).  ``verbose`` is accepted for the reference's
+    signature; on a ``GenoMatrix`` it prints nothing, as there."""
     if solver not in ("cg", "refined", "dense"):
         raise ValueError(f"solver must be cg/refined/dense, got {solver!r}")
     _check_container(g)

@@ -7,8 +7,10 @@ and ``f64`` tiers.  For genotype matrix Z (indiv, snps) and frequencies f:
     trans='t':  C[snps,  n] = (Z - M)^T @ B, B: [indiv, n]
 
 The packed product runs on one of two schedules, chosen as the reference
-chooses: :func:`packed_matmul_tall` (``csrc/tall_dgemm.cu``) for RHS of up
-to 64 columns at the fast tier and 128 at the bf16/f32 tiers, and
+chooses: :func:`packed_matmul_tall` (``csrc/tall_dgemm.cu``, bf16 tensor
+cores, one pass per bf16 part of B: hi + lo at the fast tier as the
+reference's split, hi at bf16, hi + mid + lo at f32) for RHS of up to 64
+columns at the fast tier and 128 at the bf16/f32 tiers, and
 :func:`packed_matmul` (``csrc/wide_dgemm.cu``) for wider RHS.  Centering is
 a rank-1 epilogue whose contraction-side reduction (c^T B or 1^T B) the
 tall kernel fuses at the fast tier.  The f64 tier splits B into int8 digits
@@ -26,6 +28,22 @@ from .common import decode_planar16
 
 TALL_LIMITS = {"fast": 64, "bf16": 128, "f32": 128}  # widest tall RHS per tier
 TALL_MODES = {"fast": "split", "bf16": "bf16", "f32": "f32"}
+TALL_RHS = {"split": "hilo", "bf16": "bf16", "f32": "f32"}  # B' per mode
+
+
+def tall_rhs_parts(b: torch.Tensor, mode: str) -> list:
+    """The bf16 parts of f32 ``b`` that the tall kernel multiplies by, one
+    tensor-core pass each, every part rounded to nearest even: [hi] ("bf16"),
+    [hi, lo] with lo = bf16(b - hi) ("split", the reference's
+    ``_tall_split_rows``), [hi, mid, lo] with mid = bf16(b - hi) and
+    lo = bf16(b - hi - mid) ("f32"; the parts sum to b exactly, f32
+    subnormals aside)."""
+    parts, rest = [], b.to(torch.float32)
+    for _ in range(_kernels.TALL_PASSES[mode]):
+        p = rest.to(torch.bfloat16)
+        parts.append(p)
+        rest = rest - p.to(torch.float32)    # exact: p is rest's leading bits
+    return parts
 
 
 def rhs_values(b: torch.Tensor, rhs: str) -> torch.Tensor:
@@ -43,10 +61,11 @@ def rhs_values(b: torch.Tensor, rhs: str) -> torch.Tensor:
 def packed_matmul_tall_plain(zq_other: torch.Tensor, b: torch.Tensor,
                              center_vec=None, mode: str = "split"):
     """Plain version of :func:`packed_matmul_tall`: decode densely in f32
-    and multiply."""
+    and multiply by the sum of the mode's bf16 parts of B (hi + lo in split
+    mode, bf16(B) in bf16 mode, B itself in f32 mode); v from B in f32."""
     contract = b.shape[0]
     d = decode_planar16(zq_other[:contract], torch.float32)
-    c = d.T @ rhs_values(b, mode)
+    c = d.T @ rhs_values(b, TALL_RHS[mode])
     if center_vec is None:
         return c
     return c, center_vec @ b
@@ -60,9 +79,11 @@ def packed_matmul_tall(zq_other: torch.Tensor, b: torch.Tensor,
     ``zq_other`` is the packing of the OTHER orientation: its packed rows are
     the contraction axis and its decoded columns the output rows (pass zq_t
     for Z @ B, zq_n for Z^T @ B).  ``b``: [contract, n], contract <= packed
-    rows.  ``mode``: "split" (the fast tier) or "f32" multiply by B in f32,
-    "bf16" by bf16(B).  Output rows past the real count are zero.  CUDA
-    tensors launch the tall kernel; CPU tensors take the plain version.
+    rows.  ``mode``: "split" (the fast tier) multiplies by B's bf16 hi + lo
+    (the reference's two passes, ~3e-6 relative), "bf16" by bf16(B), "f32"
+    by B (three bf16 parts, exact); v = center_vec^T B is f32.  Output rows
+    past the real count are zero.  CUDA tensors launch the tall kernel; CPU
+    tensors take the plain version.
     """
     if mode not in TALL_MODES.values():
         raise ValueError(f"mode must be split/bf16/f32, got {mode!r}")

@@ -82,6 +82,87 @@ def test_tall_modes_match_plain(dev, spad, kwi, contract, n, mode):
     assert float((got - want).abs().max()) <= 1e-5 * float(scale.max())
 
 
+TALL_SHAPES = [(contract, kwi) for contract in (1, 15, 17, 999, 16385)
+               for kwi in (1, 5, 33, 130)]
+
+
+def _all_codes(rng, rows, kw):
+    """Random words whose 2-bit fields take all four codes (3 included)."""
+    w = rng.integers(0, 2 ** 32, size=(rows, kw), dtype=np.uint64)
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32))
+
+
+def _wide_range(rng, rows, n, dev):
+    """B with entries over 2^-30..2^30, both signs and exact zeros, so that
+    every row and column differs."""
+    b = rng.standard_normal((rows, n)) * np.exp2(
+        rng.integers(-30, 31, size=(rows, n)))
+    b[rng.random((rows, n)) < 0.1] = 0.0
+    return torch.as_tensor(b, dtype=torch.float32, device=dev)
+
+
+def _tall_case(dev, rng, contract, kwi, n, mode, with_cv):
+    zq = _all_codes(rng, contract + 3, kwi).to(dev)
+    b = _wide_range(rng, contract, n, dev)
+    cv = _wide_range(rng, contract, 1, dev)[:, 0] if with_cv else None
+    got = packed_matmul_tall(zq, b, center_vec=cv, mode=mode)
+    want = packed_matmul_tall_plain(zq, b, center_vec=cv, mode=mode)
+    scale = packed_matmul_tall_plain(
+        zq, rhs_values(b, {"split": "hilo"}.get(mode, mode)).abs(),
+        center_vec=None if cv is None else cv.abs(), mode="f32")
+    if cv is None:
+        got, want, scale = (got,), (want,), (scale,)
+    else:
+        scale = (scale[0], cv.abs() @ b.abs())
+    for x, y, s in zip(got, want, scale):
+        assert x.shape == y.shape and bool(torch.isfinite(x).all())
+        # each output within 1e-5 of its own sum of |terms|
+        assert bool(((x - y).abs() <= 1e-5 * s).all()), \
+            (contract, kwi, n, mode, float(((x - y).abs() / s).max()))
+    return zq, b, cv, got
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 8, 9, 16, 17, 31, 32, 33, 63, 64])
+@pytest.mark.parametrize("with_cv", [False, True])
+def test_tall_split_widths_and_shapes(dev, n, with_cv):
+    """The split mode (K1/K2) at every 8-column tile edge up to 64, over
+    ragged contractions and word counts, against the plain hi + lo
+    product; two launches give the same bits (no atomics)."""
+    rng = np.random.default_rng(n + 100 * with_cv)
+    for contract, kwi in TALL_SHAPES:
+        zq, b, cv, got = _tall_case(dev, rng, contract, kwi, n, "split",
+                                    with_cv)
+        again = packed_matmul_tall(zq, b, center_vec=cv)
+        for x, y in zip(got, again if cv is not None else (again,)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 8, 9, 16, 17, 31, 32, 33, 63, 64,
+                               65, 96, 127, 128])
+@pytest.mark.parametrize("mode", ["bf16", "f32"])
+def test_tall_mode_widths_and_shapes(dev, n, mode):
+    rng = np.random.default_rng(n * 7 + len(mode))
+    for contract, kwi in TALL_SHAPES:
+        zq, b, _, (got,) = _tall_case(dev, rng, contract, kwi, n, mode,
+                                      False)
+        assert torch.equal(got, packed_matmul_tall(zq, b, mode=mode))
+
+
+@pytest.mark.parametrize("n", [1, 9, 64, 128])
+def test_tall_f32_mode_against_float64(dev, n):
+    """The f32 mode's three bf16 parts sum to B: each output within 1e-5 of
+    its sum of |terms| of the float64 product."""
+    rng = np.random.default_rng(n + 5)
+    for contract, kwi in TALL_SHAPES:
+        zq = _all_codes(rng, contract, kwi).to(dev)
+        b = _wide_range(rng, contract, n, dev)
+        got = packed_matmul_tall(zq, b, mode="f32").double()
+        d = decode_planar16(zq, torch.float64)
+        want = d.T @ b.double()
+        scale = d.T @ b.double().abs()
+        assert bool(((got - want).abs() <= 1e-5 * scale).all())
+
+
 @pytest.mark.parametrize("rows,kw,cols", [
     (300, 37, 590), (129, 5, 80), (1000, 128, 2048), (64, 3, 1)])
 @pytest.mark.parametrize("n", [65, 97, 130, 513])

@@ -66,8 +66,10 @@ def test_randomized_pca_matches_reference(panel):
 def test_gblup_matches_reference(panel, n_pcs, tol):
     g, ref, port = panel
     y, bv = ref_gblup.simulate_phenotypes(g, h2=0.5, seed=2)
-    want = ref_gblup.gblup(ref, y, h2=0.5, n_pcs=n_pcs, tol=tol, seed=3)
-    got = pt_gblup.gblup(port, y, h2=0.5, n_pcs=n_pcs, tol=tol, seed=3)
+    want = ref_gblup.gblup(ref, y, h2=0.5, n_pcs=n_pcs, tol=tol, seed=3,
+                           verbose=False)
+    got = pt_gblup.gblup(port, y, h2=0.5, n_pcs=n_pcs, tol=tol, seed=3,
+                         verbose=False)
     assert got.converged
     assert _rel(got.fitted, want.fitted) < RTOL
     assert _rel(got.g_hat, want.g_hat) < RTOL
