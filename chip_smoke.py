@@ -7,10 +7,12 @@ Builds the CUDA kernels of ``miraculix_tpu_torch/csrc`` and
 1. holds each kernel against its plain torch version on the ``many_indiv``
    panel (65,536 SNPs x 16,384 animals), 'n' and 't', at the shapes the
    main paths launch: the tall dgemm kernel in its split mode with and
-   without the fused center vector (1, 12, 18, 32 and 33 columns) and in its
-   bf16 and f32 modes (1, 32 and 128 columns; max error <= 1e-5 of max
-   |plain|), the tall and wide kernels timed side by side at the bf16 and
-   f32 tiers' 65 and 128 columns, the wide dgemm kernel in its four RHS instances
+   without the fused center vector (1, 4, 6, 12, 18, 32, 33 and 64 columns)
+   and in its bf16 and f32 modes (1, 32 and 128 columns; max error <= 1e-5
+   of max |plain|; the f32 mode on a B whose third bf16 parts add up, with
+   the split grade as a second control), its time split by kernel, the tall
+   and wide kernels timed side by side at the bf16 and f32 tiers' 65 and
+   128 columns, the wide dgemm kernel in its four RHS instances
    (fast split, f32, bf16, bf16 hi||lo; error <= 4e-6 of each output's sum
    of |terms|), each against a plain version that rounds B the same way,
    the integer crossproduct (exactly equal), the
@@ -63,7 +65,8 @@ Builds the CUDA kernels of ``miraculix_tpu_torch/csrc`` and
    for the f64 tier.
 
 Earlier lines report per-phase seconds, errors, launch counts (the tall
-kernel's also by mode and width over the main paths), the card's
+kernel's also by mode and width over the main paths, each of which phase 1
+must have checked), the card's
 name and power limit, and one JSON object of kernel results; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero and
 prints no result line.
@@ -96,11 +99,13 @@ GWAS_TOL, GWAS_MAXITER = 1e-2, 300   # absolute CG residual norm (|rhs| ~ 1e2)
 N_QTL = 100           # gblup.simulate_phenotypes' default
 LD_WINDOW, LD_R2 = 512, 0.2   # plink --indep-pairwise 512 ... 0.2
 LD_BLOCK = 4096               # ld_windowed's row block: [4096, 4608] products
-# the tall kernel's phase-1 widths: the main paths' (1: the u solve and
-# g_hat; 12: GBLUP's CG right-hand sides; 18: its PCA sketch; 32: the tiers
-# phase; 33: gwas_mixed_loco's CG, the most launched) and the bf16/f32
-# tiers' widest (128)
-TALL_NCOLS = (32, 1, 12, 18, 33, 128)
+# the tall kernel's phase-1 widths: every (mode, width) the main paths
+# launch (1: the u solve and g_hat; 4, 6 and 64: the refined and dense
+# GBLUP and f64 paths; 12: GBLUP's CG right-hand sides; 18: its PCA sketch;
+# 32: the tiers phase; 33: gwas_mixed_loco's CG, the most launched; the
+# script fails if a main path launches one not checked here) and the
+# bf16/f32 tiers' widest (128)
+TALL_NCOLS = (32, 1, 4, 6, 12, 18, 33, 64, 128)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 and
 # int8 tensor cores, and HBM; a kernel's bound is the larger of ops/peak
@@ -175,6 +180,19 @@ def bound(name: str, macs: float, nbytes: float) -> tuple[float, str]:
                                        else "bytes")
 
 
+def lo_biased(b):
+    """``b`` with its f32-mode parts set to hi = bf16(b), mid = 1.5 *
+    2^(e-9) and lo = 1.5 * 2^(e-18) for 2^e <= |hi| (exact in f32).  The
+    positive lo products add up over the contraction instead of cancelling,
+    so that a product without them (the split grade, hi + mid) stands well
+    outside the f32 mode's limit."""
+    import torch
+
+    hi = b.to(torch.bfloat16).to(torch.float32)
+    e = torch.floor(torch.log2(hi.abs()))
+    return hi + 1.5 * torch.exp2(e - 9) + 1.5 * torch.exp2(e - 18)
+
+
 def median_chi2_ratio(chi2, qtl) -> float:
     import numpy as np
 
@@ -207,7 +225,8 @@ def main() -> int:
                                                packed_matmul_int8_plain,
                                                packed_matmul_plain,
                                                packed_matmul_tall,
-                                               packed_matmul_tall_plain)
+                                               packed_matmul_tall_plain,
+                                               rhs_values)
     from miraculix_tpu_torch.ops.grm import (_ddt_dense, _ld_prune_greedy,
                                              _missing_d_csr,
                                              packed_crossprod_plain,
@@ -272,8 +291,10 @@ def main() -> int:
         """``got`` against ``want``: max |got - want| relative to max |want|
         or, where ``scale`` (each output's sum of |terms|) is given, the
         largest |got - want| / scale.  ``control`` (want's product at the
-        other grade) must read above the limit under the same metric."""
+        other grade, or a list of such products) must read above the limit
+        under the same metric."""
         tol = KERNEL_RTOL if scale is None else WIDE_RTOL
+        controls = control if isinstance(control, list) else [control]
 
         def metric(x):
             diff = (x - want).abs()
@@ -284,11 +305,12 @@ def main() -> int:
                                      torch.where(diff > 0, torch.inf,
                                                  zero)).max())
         err = float((got - want).abs().max())
-        rel, crel = metric(got), metric(control)
+        rel, crel = metric(got), [metric(c) for c in controls]
         log(f"check {name} {label}: max_abs_err={err:.6g} rel={rel:.3g} "
-            f"(limit {tol:g}; other-grade control {crel:.3g})")
+            f"(limit {tol:g}; other-grade control "
+            f"{' / '.join(f'{c:.3g}' for c in crel)})")
         if not (bool(torch.isfinite(got).all()) and got.shape == want.shape
-                and rel <= tol < crel):
+                and rel <= tol < min(crel)):
             disagree.append(f"{name} {label}")
         record(name, err)
 
@@ -320,6 +342,7 @@ def main() -> int:
 
         # tall schedule: zq_t for 'n' (contract = SNPs), zq_n for 't'
         orient = {"n": (gm.zq_t, N_SNPS), "t": (gm.zq_n, N_INDIV)}
+        tall_checked = set()   # (mode, n) checked here, 'n' and 't'
         for trans in ("n", "t"):
             zq, contract = orient[trans]
             dec = decode_planar16(zq[:contract], torch.float32)  # library's
@@ -334,13 +357,41 @@ def main() -> int:
                 if ncol in (1, 128) and trans == "n" or ncol == 32:
                     cases += [("tall_dgemm_bf16", "", None, "bf16"),
                               ("tall_dgemm_f32", "", None, "f32")]
+                if ncol == 32 and trans == "n":   # checked, not timed
+                    cases += [("tall_dgemm", "positive", None, "split")]
                 for name, label, cv, mode in cases:
+                    # the f32 mode on a B whose third parts add up, so that
+                    # the split grade (no third pass) is a second control;
+                    # a positive B, whose sums grow without cancelling
                     b = randn(contract, ncol)
+                    if mode == "f32":
+                        b = lo_biased(b)
+                    elif label == "positive":
+                        b = b.abs()
                     tag = f"{trans} {label} ncol={ncol}".replace("  ", " ")
+                    tall_checked.add((mode, ncol))
                     got = packed_matmul_tall(zq, b, cv, mode=mode)
                     want = packed_matmul_tall_plain(zq, b, cv, mode=mode)
                     control = packed_matmul_tall_plain(
                         zq, b, mode="f32" if mode == "bf16" else "bf16")
+                    if mode == "f32" or label == "positive":
+                        # held to the float64 product: the plain f32
+                        # product (torch.matmul) is itself off by more
+                        # than the limit on the lo-biased B (printed)
+                        d64 = decode_planar16(zq[:contract], torch.float64)
+                        got, plain = got.double(), want.double()
+                        want = d64.T @ rhs_values(
+                            b, "hilo" if mode == "split" else "f32").double()
+                        grades = ("bf16",) if mode == "split" else (
+                            "bf16", "hilo")
+                        control = [d64.T @ rhs_values(b, r).double()
+                                   for r in grades]
+                        del d64
+                        prel = float((plain - want).abs().max()
+                                     / want.abs().max())
+                        log(f"check {name} {tag} plain f32 vs float64: "
+                            f"rel={prel:.3g}")
+                        del plain
                     if cv is None:
                         compare(name, tag + " c", got, want, control)
                     else:
@@ -350,6 +401,8 @@ def main() -> int:
                                 (cvs[trans] @ b.to(torch.bfloat16)
                                  .to(torch.float32)))
                     del got, want, control
+                    if label == "positive":
+                        continue
                     # the library call multiplies in the instance's type
                     if mode == "bf16":
                         lib_fn = (lambda d=dec.to(torch.bfloat16),
@@ -384,6 +437,25 @@ def main() -> int:
                 wms = event_ms(lambda: packed_matmul(gm.zq_n, b, **opts), 5)
                 log(f"time crossover {mode} n ncol={ncol}: tall {tms:.4f} ms, "
                     f"wide {wms:.4f} ms")
+
+        # the tall kernel's device time by kernel: B pre-pass, mma kernel,
+        # split reduction (torch.profiler; empty where it sees no device)
+        for mode, ncol in (("split", 32), ("f32", 128)):
+            b = randn(N_SNPS, ncol)
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    packed_matmul_tall(gm.zq_t, b, mode=mode)
+                torch.cuda.synchronize()
+            by_kernel = collections.Counter()
+            for ev in prof.key_averages():
+                if ev.device_time_total > 0:
+                    key = next((k for k in ("tall_parts", "tall_mma",
+                                            "reduce_splits") if k in ev.key),
+                               ev.key[:40])
+                    by_kernel[key] += ev.device_time_total / 5 / 1e3
+            log(f"time tall_dgemm {mode} n ncol={ncol} by kernel (ms): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items()))
 
         # wide schedule: zq_n for 'n' (rows = animals), zq_t for 't'
         wide_orient = {"n": (gm.zq_n, N_SNPS), "t": (gm.zq_t, N_INDIV)}
@@ -993,6 +1065,9 @@ def main() -> int:
     check(not missing, f"never launched on a main path: {missing}")
     log("tall launches on the main paths by (mode, n): "
         + ", ".join(f"{m} {n}: {c}" for (m, n), c in sorted(tall_hist.items())))
+    unchecked = sorted(set(tall_hist) - tall_checked)
+    check(not unchecked, f"tall widths launched on a main path but not "
+          f"checked in phase 1: {unchecked}")
 
     # -- 7. GPU vs CPU path on small panels -------------------------------
     small = bed.simulate_genotypes(600, 5000, seed=SEED + 1)

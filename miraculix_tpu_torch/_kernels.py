@@ -162,7 +162,9 @@ def _raise_if(err: int, what: str) -> None:
 
 
 CROSSPROD_TILE = 64      # output tile edge of csrc/crossprod.cu
-TALL_WAVES = 1           # resident waves of tall blocks the split aims at
+# the most contraction rows one tall split sums: the kernel's f32 total
+# over all 65,536 SNPs of the 'n' shape drifted past 1e-5 of max |plain|
+TALL_SPLIT_ROWS = 8192
 WIDE_BLOCKS_PER_SM = 8   # launched wide blocks per SM the split aims at
 INT8_BLOCKS_PER_SM = 4   # launched digit-product blocks per SM, likewise
 INT8_NARROW_COLS = 16    # digit RHS up to this width take B10's 256 x 16 tile
@@ -174,15 +176,16 @@ def _sms(device) -> int:
 
 def tall_splits(kwi: int, contract: int, n: int, passes: int,
                 device) -> int:
-    """Contraction splits that fill TALL_WAVES whole waves of the blocks the
-    card holds at once (narrow outputs have too few word tiles to fill it
-    alone), each split keeping at least 256 contraction rows."""
+    """Contraction splits that fill one wave of the blocks the card holds at
+    once (narrow outputs have too few word tiles to fill it alone), and
+    that sum at most TALL_SPLIT_ROWS rows each, each split keeping at least
+    256 contraction rows."""
     lib = _load()
     resident = lib.mx_tall_blocks_per_sm(n, passes)
     if resident < 1:
         raise RuntimeError("tall_dgemm: the kernel fits no block on an SM")
-    want = TALL_WAVES * resident * _sms(device) // lib.mx_tall_tiles(
-        kwi, n, passes)
+    want = max(resident * _sms(device) // lib.mx_tall_tiles(kwi, n, passes),
+               -(-contract // TALL_SPLIT_ROWS))
     return max(1, min(want, contract // 256, 65535))
 
 

@@ -87,7 +87,7 @@ __global__ void reduce_splits(const float* __restrict__ part, int splits,
   }
   if (vpart != nullptr && i < n) {
     float acc = 0.f;
-    for (int s = 0; s < splits; ++s) acc += vpart[s * n + i];
+    for (int s = 0; s < splits; ++s) acc += vpart[(long long)s * n + i];
     vout[i] = acc;
   }
 }

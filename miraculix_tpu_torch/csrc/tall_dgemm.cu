@@ -37,25 +37,28 @@
 //     make the bf16 pair 128 + code, one bf16x2 subtraction leaves the
 //     code; no convert).  The fragment rows land at ct[j, m*kwi + w], the
 //     reference's plane-major order;
-//   - the hi pass accumulates apart from the smaller parts (the reference
-//     keeps its hi and lo products apart too): the tensor cores' f32 sums
-//     truncate addends far below the running sum, which put one shared
-//     accumulator above the 1e-5 limit at f32 'n' 128 on the H100;
+//   - each part's 16-row sum is one mma from zero; the parts' sums are
+//     added smallest first, and the result to an f32 register total, by
+//     round-to-nearest adds.  The tensor cores' f32 sums truncate addends
+//     below the accumulator's window: accumulators that ran over a whole
+//     contraction split drifted far past the 1e-5 limit on the H100 where
+//     B is positive (its sums grow without cancelling);
 //   - a block is 8 warps of 4 or 8 words (32 or 64 words) and one column
 //     chunk (gridDim.z; at most 64 columns in one pass, 32 in two or three,
-//     so that the accumulators stay within 128 registers); a cp.async ring
-//     of 2 stages of 128 contraction rows of words and B parts keeps the
-//     next stage's copies in flight while one stage's mmas run, with one
-//     block barrier per stage (larger stages measured faster: fewer
-//     barriers); the epilogue stores each 8-column tile through shared
-//     memory as rows of consecutive words;
+//     whose B fragments take two or three times the registers and shared
+//     memory per column); a cp.async ring of 2 stages of 128 contraction
+//     rows of words and B parts keeps the next stage's copies in flight
+//     while one stage's mmas run, with one block barrier per stage (larger
+//     stages measured faster: fewer barriers); the epilogue stores each
+//     8-column tile through shared memory as rows of consecutive words;
 //   - the contraction is split over gridDim.y to fill one wave of the
 //     blocks the card holds at once; split partials land in a workspace
 //     and reduce_splits sums them, and the cv partials, in a fixed order:
 //     results are run-to-run deterministic.
-// On the H100 it reaches about a third of its bound (0.44 ms at split 'n'
-// 32): one block of 8 warps per SM where two accumulator sets take over
-// 200 registers, and a decode of ~16 instructions per word and step.
+// On the H100 it reaches about a fifth of its bound (0.65 ms at split 'n'
+// 32): one block of 8 warps per SM at the widest instances (over 170
+// registers), a decode of ~16 instructions per word and step, and four
+// f32 adds per part, fragment and step.
 // The Hopper route to the full tensor-core rate (wgmma with A from the
 // decoded registers, B from shared memory, a warp-specialised TMA ring) is
 // later work.
@@ -68,27 +71,17 @@
 
 namespace {
 
-// The staging knobs (mma steps per staged tile, ring depth) can be set
-// with -D for an A/B build (tools/torch_tall_sweep.py); the defaults are
-// the measured choice.
-#ifndef TALL_KK
-#define TALL_KK 8
-#endif
-#ifndef TALL_STAGES
-#define TALL_STAGES 2
-#endif
 constexpr int K_STEP = 16;     // contraction rows of one mma
-constexpr int KK = TALL_KK;    // mma steps per staged tile
+constexpr int KK = 8;          // mma steps per staged tile
 constexpr int K_TILE = KK * K_STEP;
-constexpr int STAGES = TALL_STAGES;
+constexpr int STAGES = 2;      // cp.async ring depth
 constexpr int WARPS = 8;       // warps of a main-kernel block
 constexpr int THREADS = 32 * WARPS;
 constexpr int V_ROWS = 128;    // contraction rows per cv partial
 constexpr int MAX_PASSES = 3;
 
 // Column chunks of an n-column RHS (gridDim.z) and their (equal) width:
-// at most 64 columns for one pass, 32 for two or three, whose hi pass
-// keeps an accumulator of its own.
+// at most 64 columns for one pass, 32 for two or three.
 inline int max_chunk(int passes) { return passes > 1 ? 32 : 64; }
 inline int tall_chunks(int n, int passes) {
   return (n + max_chunk(passes) - 1) / max_chunk(passes);
@@ -106,17 +99,14 @@ inline long long k_steps(long long contract) {
   const long long tiles = contract <= 0 ? 1 : (contract + K_TILE - 1) / K_TILE;
   return tiles * KK;
 }
-// accumulator sets: the hi pass apart from the smaller parts, so that the
-// tensor cores' f32 sums do not truncate small addends against large sums
-__host__ __device__ constexpr int n_acc(int p) { return p > 1 ? 2 : 1; }
 // packed words per warp: 8 while the accumulators stay within 64 registers
-__host__ __device__ constexpr int words_per_warp(int nt, int p) {
-  return n_acc(p) * nt <= 2 ? 8 : 4;
+__host__ __device__ constexpr int words_per_warp(int nt) {
+  return nt <= 2 ? 8 : 4;
 }
 
 // ---------------------------------------------------------------------------
 // Pre-pass: B -> bf16 parts in B-fragment order, and cv^T B partials.
-// Grid (chunks * nt 8-column tiles, row blocks of V_ROWS), block 256: warp
+// Grid (row blocks of V_ROWS, chunks * nt 8-column tiles), block 256: warp
 // = one 16-row mma step of the row block, lane = its fragment lane (g, t),
 // which holds column g of the tile at rows 2t, 2t+1 (.x) and 2t+8, 2t+9
 // (.y), the lower row in the lower half.  Each lane writes one uint2 per
@@ -130,10 +120,10 @@ tall_parts(const float* __restrict__ b, long long contract, int n, int cw,
   __shared__ float vs[8][8];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int c = blockIdx.x / nt, ntile = blockIdx.x % nt;
+  const int c = blockIdx.y / nt, ntile = blockIdx.y % nt;
   const int q = ntile * 8 + g, j = c * cw + q;
   const bool col = q < cw && j < n;
-  const long long ks = (long long)blockIdx.y * (V_ROWS / K_STEP) + warp;
+  const long long ks = (long long)blockIdx.x * (V_ROWS / K_STEP) + warp;
   float vacc = 0.f;
   if (ks < ks_total) {
     uint32_t frag[MAX_PASSES][2] = {};
@@ -170,7 +160,7 @@ tall_parts(const float* __restrict__ b, long long contract, int n, int cw,
   if (warp == 0 && t == 0 && col) {
     float acc = 0.f;
     for (int w = 0; w < 8; ++w) acc += vs[w][g];
-    vpre[(long long)blockIdx.y * n + j] = acc;
+    vpre[(long long)blockIdx.x * n + j] = acc;
   }
 }
 
@@ -208,7 +198,7 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
 
 template <int NT, int P>
 struct Tile {
-  static constexpr int WPW = words_per_warp(NT, P);
+  static constexpr int WPW = words_per_warp(NT);
   static constexpr int W_BLK = WARPS * WPW;          // words per block
   static constexpr int ZS = W_BLK + 4;               // padded smem row
   static constexpr int ZS_WORDS = K_TILE * ZS;       // per stage
@@ -226,7 +216,7 @@ tall_mma(const uint32_t* __restrict__ zq, int kwi, long long contract,
          const uint2* __restrict__ parts, long long ks_total, int n, int cw,
          long long ks_per_split, int vec, float* __restrict__ part_out) {
   using T = Tile<NT, P>;
-  constexpr int WPW = T::WPW, W_BLK = T::W_BLK, ZS = T::ZS, NA = n_acc(P);
+  constexpr int WPW = T::WPW, W_BLK = T::W_BLK, ZS = T::ZS;
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* zs = (uint32_t*)smem;                    // [STAGES][ZS_WORDS]
   uint2* ps = (uint2*)(smem + STAGES * T::ZS_WORDS * sizeof(uint32_t));
@@ -269,15 +259,13 @@ tall_mma(const uint32_t* __restrict__ zq, int kwi, long long contract,
       cp_async16(pd + idx, src + idx, 16);
   };
 
-  float acc[NA][WPW][NT][4];
+  float acc[WPW][NT][4];
 #pragma unroll
-  for (int h = 0; h < NA; ++h)
+  for (int i = 0; i < WPW; ++i)
 #pragma unroll
-    for (int i = 0; i < WPW; ++i)
+    for (int u = 0; u < NT; ++u)
 #pragma unroll
-      for (int u = 0; u < NT; ++u)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[h][i][u][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[i][u][e] = 0.f;
 
   const int sh = 2 * g;                              // planes g and g+8
 #pragma unroll
@@ -308,16 +296,30 @@ tall_mma(const uint32_t* __restrict__ zq, int kwi, long long contract,
         mx::a_fragment(x0.z, x1.z, x2.z, x3.z, sh, a[4 * q + 2]);
         mx::a_fragment(x0.w, x1.w, x2.w, x3.w, sh, a[4 * q + 3]);
       }
-      // parts outermost: an accumulator's next mma is WPW*NT mmas away
+      // each part's 16-row sum by an mma of its own from zero, then the
+      // parts added smallest first and their sum added to the f32 total,
+      // each rounded to nearest: an mma aligns its addends (C included) to
+      // the largest and truncates below a fixed window, so a smaller
+      // part's sum passed as C to a larger part's mma, or a sum run on in
+      // a tensor-core accumulator, loses its low bits
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
+      for (int u = 0; u < NT; ++u) {
+        float d[P][WPW][4] = {};
 #pragma unroll
-        for (int u = 0; u < NT; ++u) {
+        for (int p = 0; p < P; ++p) {      // words innermost: independent
           const uint2 bb = pb[((kk * P + p) * NT + u) * 32 + lane];
 #pragma unroll
-          for (int w = 0; w < WPW; ++w)
-            mma_bf16(acc[p > 0 ? NA - 1 : 0][w][u], a[w], bb);
+          for (int w = 0; w < WPW; ++w) mma_bf16(d[p][w], a[w], bb);
         }
+#pragma unroll
+        for (int w = 0; w < WPW; ++w)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float sum = d[P - 1][w][e];
+#pragma unroll
+            for (int p = P - 2; p >= 0; --p) sum += d[p][w][e];
+            acc[w][u][e] += sum;
+          }
       }
     }
   }
@@ -337,9 +339,7 @@ tall_mma(const uint32_t* __restrict__ zq, int kwi, long long contract,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int q = 2 * t + (e & 1), m = g + 8 * (e >> 1);
-        float v = acc[0][i][u][e];
-        if (NA > 1) v += acc[NA - 1][i][u][e];
-        os[(q * 16 + m) * W_BLK + warp * WPW + i] = v;
+        os[(q * 16 + m) * W_BLK + warp * WPW + i] = acc[i][u][e];
       }
     __syncthreads();
     for (int idx = tid; idx < 8 * 16 * W_BLK; idx += THREADS) {
@@ -422,7 +422,7 @@ int dispatch(int passes, int nt, const Args* a, int* blocks_per_sm) {
 // its split count from the two.
 extern "C" int mx_tall_tiles(int kwi, int n, int passes) {
   const int p = passes < 1 ? 1 : passes > MAX_PASSES ? MAX_PASSES : passes;
-  const int wblk = WARPS * words_per_warp(n_tiles(n, p), p);
+  const int wblk = WARPS * words_per_warp(n_tiles(n, p));
   return (kwi + wblk - 1) / wblk * tall_chunks(n, p);
 }
 
@@ -456,7 +456,7 @@ extern "C" int mx_tall_dgemm(const void* zq, int kwi, const void* b,
                              void* parts, int splits, int passes,
                              void* stream) {
   if (n < 1 || kwi < 1 || splits < 1 || contract < 0 || passes < 1 ||
-      passes > MAX_PASSES || mx_tall_vrows(contract) > 65535)
+      passes > MAX_PASSES)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const long long ks_total = k_steps(contract);
@@ -464,7 +464,9 @@ extern "C" int mx_tall_dgemm(const void* zq, int kwi, const void* b,
   long long kps = (ks_total + splits - 1) / splits;
   kps = (kps + KK - 1) / KK * KK;                 // whole staged tiles
 
-  dim3 pgrid(chunks * nt, (unsigned)mx_tall_vrows(contract));
+  // row blocks on gridDim.x: no limit on the contraction's length short of
+  // 2^31 - 1 blocks
+  dim3 pgrid((unsigned)mx_tall_vrows(contract), chunks * nt);
   tall_parts<<<pgrid, 256, 0, st>>>(
       (const float*)b, contract, n, chunk_width(n, passes), nt, ks_total,
       passes, (const float*)cv, (uint2*)parts, (float*)vwork);

@@ -163,6 +163,69 @@ def test_tall_f32_mode_against_float64(dev, n):
         assert bool(((got - want).abs() <= 1e-5 * scale).all())
 
 
+def _lo_biased(b):
+    """``b`` with f32-mode parts hi = bf16(b), mid = 1.5 * 2^(e-9), lo =
+    1.5 * 2^(e-18) for 2^e <= |hi| (exact in f32): the positive lo products
+    add up over the contraction instead of cancelling."""
+    hi = b.to(torch.bfloat16).to(torch.float32)
+    e = torch.floor(torch.log2(hi.abs()))
+    return hi + 1.5 * torch.exp2(e - 9) + 1.5 * torch.exp2(e - 18)
+
+
+@pytest.mark.parametrize("n", [1, 8, 33, 128])
+def test_tall_f32_mode_runs_its_third_pass(dev, n):
+    """The f32 mode stands far closer to the float64 product than the split
+    grade (hi + mid, no third pass) does, on a B whose lo parts add up."""
+    rng = np.random.default_rng(n + 9)
+    zq = _all_codes(rng, 16385, 33).to(dev)
+    b = _lo_biased(torch.as_tensor(rng.standard_normal((16385, n)),
+                                   dtype=torch.float32, device=dev))
+    d = decode_planar16(zq, torch.float64)
+    want = d.T @ b.double()
+    err = float((packed_matmul_tall(zq, b, mode="f32").double() - want)
+                .abs().max())
+    two_parts = float((d.T @ rhs_values(b, "hilo").double() - want)
+                      .abs().max())
+    assert err <= 0.25 * two_parts, (err, two_parts)
+
+
+@pytest.mark.parametrize("mode", ["split", "bf16", "f32"])
+def test_tall_positive_rhs_long_sums(dev, mode):
+    """A positive B, whose sums grow without cancelling, over 16,384 rows
+    and 4,096 words (one contraction split): each output within 1e-5 of
+    the float64 product of the mode's parts.  Tensor-core accumulators run
+    over the whole split truncate their addends and miss this."""
+    rng = np.random.default_rng(len(mode))
+    zq = _all_codes(rng, 16384, 4096).to(dev)
+    b = torch.as_tensor(np.abs(rng.standard_normal((16384, 16))),
+                        dtype=torch.float32, device=dev)
+    got = packed_matmul_tall(zq, b, mode=mode).double()
+    want = decode_planar16(zq, torch.float64).T @ rhs_values(
+        b, {"split": "hilo"}.get(mode, mode)).double()
+    assert bool(((got - want).abs() <= 1e-5 * want).all()), \
+        float(((got - want).abs() / want).max())
+
+
+def test_tall_contraction_past_65535_row_blocks(dev):
+    """A contraction longer than 65,535 x 128 rows (an 8.4M-SNP panel at
+    'n') runs, with cv, against the float64 product."""
+    contract = 65535 * 128 + 1000
+    rng = np.random.default_rng(12)
+    zq = _all_codes(rng, contract, 1).to(dev)
+    b = torch.as_tensor(rng.standard_normal((contract, 1)),
+                        dtype=torch.float32, device=dev)
+    cv = torch.as_tensor(rng.standard_normal(contract), dtype=torch.float32,
+                         device=dev)
+    got, v = packed_matmul_tall(zq, b, center_vec=cv)
+    d = decode_planar16(zq, torch.float64)
+    bh = rhs_values(b, "hilo").double()
+    assert bool(((got.double() - d.T @ bh).abs()
+                 <= 1e-5 * (d.T @ bh.abs())).all())
+    cvd, bd = cv.double(), b.double()
+    assert bool(((v.double() - cvd @ bd).abs()
+                 <= 1e-5 * (cvd.abs() @ bd.abs())).all())
+
+
 @pytest.mark.parametrize("rows,kw,cols", [
     (300, 37, 590), (129, 5, 80), (1000, 128, 2048), (64, 3, 1)])
 @pytest.mark.parametrize("n", [65, 97, 130, 513])
