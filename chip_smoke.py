@@ -15,14 +15,14 @@ Builds the CUDA kernels of ``miraculix_tpu_torch/csrc`` and
    128 columns, the wide dgemm kernel in its four RHS instances
    (fast split, f32, bf16, bf16 hi||lo; error <= 4e-6 of each output's sum
    of |terms|), each against a plain version that rounds B the same way,
-   the integer crossproduct (exactly equal), the
-   rectangular crossproduct at an LD row block and a ``grm_blocked`` tile
-   and the masked-grid crossproduct on the whole square (exactly equal, the
-   latter to K3 too), and the weighted crossproduct at the GCTA GRM's
-   weights (error <= 4e-6 of each output).  Each dgemm and weighted check
-   also reads a control, the plain product at the other grade (bf16(B)
-   against B, bf16(w) against w), which must exceed the limit under the
-   same metric.  The exact digit kernel of the f64 tier is held to its
+   the integer crossproduct (exactly equal), the rectangular crossproduct
+   at an LD row block and a ``grm_blocked`` tile (random and all-2
+   genotypes) and the masked-grid crossproduct on the whole square (exactly
+   equal, the latter to K3 too), and the weighted crossproduct at the GCTA
+   GRM's weights (error <= 4e-6 of each output).  Each dgemm and weighted
+   check also reads a control, the plain product at the other grade
+   (bf16(B) against B, bf16(w) against w), which must exceed the limit
+   under the same metric.  The exact digit kernel of the f64 tier is held to its
    plain version (exactly equal) at the three products the f64 paths
    launch, with digits over [-64, 64].  Each kernel is timed beside its
    plain version, one PyTorch library call on the pre-decoded panel, and
@@ -64,7 +64,9 @@ Builds the CUDA kernels of ``miraculix_tpu_torch/csrc`` and
    corrections on a panel with 2% missing genotypes), at 1e-3, or 1e-12
    for the f64 tier.
 
-Earlier lines report per-phase seconds, errors, launch counts (the tall
+Earlier lines report the compiler's registers and spills (and, for the
+integer crossproduct, its shared memory and resident blocks an SM), per-phase
+seconds, errors, kernel rates beside their bounds, launch counts (the tall
 kernel's also by mode and width over the main paths, each of which phase 1
 must have checked), the card's
 name and power limit, and one JSON object of kernel results; the last line
@@ -272,6 +274,10 @@ def main() -> int:
     for ln in (lib.parent / "build.log").read_text().splitlines():
         if "Used" in ln or ("spill" in ln and not ln.strip().startswith("0")):
             log(f"  ptxas: {ln.strip()}")
+    for name, info in _kernels.crossprod_info().items():
+        log(f"  {name}: {info['registers']} registers, {info['local_bytes']} "
+            f"local (spill) bytes a thread, {info['smem_bytes']} bytes of "
+            f"dynamic shared memory, {info['blocks_per_sm']} blocks an SM")
 
     # -- host set-up: the panel, its .bed fileset, the GPU container -------
     t0 = time.perf_counter()
@@ -319,9 +325,11 @@ def main() -> int:
         pms = event_ms(plain, 2)
         lms = event_ms(library, 3) if library is not None else None
         bms, by = bound(name, macs, nbytes)
-        log(f"time {name} {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+        log(f"time {name} {label}: kernel {ms:.4f} ms "
+            f"({2e-9 * macs / ms:.1f} T op/s), plain {pms:.4f} ms, "
             f"library {'n/a' if lms is None else f'{lms:.4f} ms'}, "
-            f"bound {bms:.4f} ms ({by})")
+            f"bound {bms:.4f} ms ({by}; the kernel at "
+            f"{100 * bms / ms:.1f}% of it)")
         return {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                 "library_ms": lms}
 
@@ -571,6 +579,18 @@ def main() -> int:
                 record("crossprod_rect", 0.0, t)
             del da8, db8
             torch.cuda.empty_cache()
+        # B8 on an all-2 panel at the grm_blocked tile: 4 * 16 * kw =
+        # 262,144 in every entry, the largest sums these shapes reach
+        twos = torch.full((2 * half, kw), int(np.uint32(0xAAAAAAAA).view(
+            np.int32)), dtype=torch.int32, device=dev)
+        za, zb = twos[:half], twos[half:]
+        got = packed_crossprod_rect(za, zb)
+        exact("crossprod_rect", "all-2 grm_blocked tile", got,
+              packed_crossprod_rect_plain(za, zb))
+        check(bool((got == 4 * 16 * kw).all()),
+              "B8 on the all-2 panel: an entry is not 4 * 16 * kw")
+        del twos, za, zb, got
+        torch.cuda.empty_cache()
 
         # B9 at grm_yang's weights: 1 / (2pq m); every term is >= 0, so the
         # sum of |terms| of each output is the output itself

@@ -128,6 +128,10 @@ def _load():
             lib.mx_wide_dgemm.argtypes = [vp, i32, i32, vp, i64, i32, i32, vp,
                                           vp, i32, vp]
             lib.mx_wide_dgemm.restype = i32
+            lib.mx_crossprod_tile.argtypes = []
+            lib.mx_crossprod_tile.restype = i32
+            lib.mx_crossprod_info.argtypes = [i32, ctypes.POINTER(i32)]
+            lib.mx_crossprod_info.restype = i32
             lib.mx_crossprod.argtypes = [vp, i32, i32, vp, vp]
             lib.mx_crossprod.restype = i32
             lib.mx_crossprod_rect.argtypes = [vp, i32, vp, i32, i32, i32, vp,
@@ -161,7 +165,6 @@ def _raise_if(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
-CROSSPROD_TILE = 64      # output tile edge of csrc/crossprod.cu
 # the most contraction rows one tall split sums: the kernel's f32 total
 # over all 65,536 SNPs of the 'n' shape drifted past 1e-5 of max |plain|
 TALL_SPLIT_ROWS = 8192
@@ -274,6 +277,26 @@ def wide_dgemm(zq: torch.Tensor, b: torch.Tensor, rhs: str) -> torch.Tensor:
     return out
 
 
+def crossprod_tile() -> int:
+    """The output tile edge of ``csrc/crossprod.cu``: the unit of K3's tile
+    pairs and of B12's mask (and so of its mirror merge)."""
+    return _load().mx_crossprod_tile()
+
+
+def crossprod_info() -> dict:
+    """Registers and local (spill) bytes a thread, dynamic shared memory a
+    block and resident blocks per SM of the crossproduct kernels, as the
+    CUDA runtime reports them on the current device."""
+    lib, info = _load(), {}
+    for which, name in enumerate(("crossprod_kernel",
+                                  "crossprod_rect_kernel")):
+        vals = (ctypes.c_int * 4)()
+        _raise_if(lib.mx_crossprod_info(which, vals), "crossprod_info")
+        info[name] = dict(zip(("registers", "local_bytes", "smem_bytes",
+                               "blocks_per_sm"), vals))
+    return info
+
+
 def crossprod(zq: torch.Tensor) -> torch.Tensor:
     """K3: exact int32 decode(zq) decode(zq)^T, [rows, rows]."""
     lib = _load()
@@ -309,7 +332,7 @@ def crossprod_rect(za: torch.Tensor, zb: torch.Tensor) -> torch.Tensor:
 
 
 def crossprod_tri(zq: torch.Tensor) -> torch.Tensor:
-    """B12: decode(zq) decode(zq)^T [rows, rows] on the CROSSPROD_TILE tiles
+    """B12: decode(zq) decode(zq)^T [rows, rows] on the crossprod_tile() tiles
     that touch or lie above the diagonal; the tiles wholly below it are left
     unwritten for the caller's mirror merge."""
     return _rect(zq, zq, True, "crossprod_tri")

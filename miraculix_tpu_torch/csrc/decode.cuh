@@ -1,5 +1,6 @@
-// Genotype decode (to f32, or to bf16 mma fragments), RHS rounding, the split reduction and the upper tile-pair
-// walk shared by the packed-product kernels.
+// Genotype decode (to f32, to bf16 mma fragments, or to int8 quads), RHS
+// rounding, the split reduction and the upper tile-pair walk shared by the
+// packed-product kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,6 +48,18 @@ __device__ __forceinline__ void a_fragment(uint32_t w0, uint32_t w1,
   a[1] = plane_pair_bf16(__byte_perm(w0, w1, 0x7632), shift);
   a[2] = plane_pair_bf16(__byte_perm(w2, w3, 0x5410), shift);
   a[3] = plane_pair_bf16(__byte_perm(w2, w3, 0x7632), shift);
+}
+
+// One packed word as 16 int8 contraction values, for the int8 mma:
+// register q = (w >> 2q) & 0x03030303 holds planes q, q+4, q+8, q+12 in
+// bytes 0..3, so the word's 16 bytes r0 | r1 | r2 | r3 put plane 4b + q at
+// byte k = 4q + b.  An m16n8k32 A register (row-major) and B register
+// (.col) each hold four consecutive k of one row, and both operands of a
+// crossproduct are rows with the same word -> SNP map: any k order shared
+// by the two sides gives the full contraction, so no shuffle is needed.
+__device__ __forceinline__ uint4 int8_quads(uint32_t w) {
+  return make_uint4(w & 0x03030303u, (w >> 2) & 0x03030303u,
+                    (w >> 4) & 0x03030303u, (w >> 6) & 0x03030303u);
 }
 
 // x rounded once to bf16, to nearest even, and widened back

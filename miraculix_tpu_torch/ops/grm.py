@@ -79,7 +79,7 @@ def packed_crossprod(zq: torch.Tensor, triangle: bool = True,
         return _kernels.crossprod_rect(zq, zq)
     if not wrap:
         return _mirror_merge(_kernels.crossprod_tri(zq),
-                             _kernels.CROSSPROD_TILE)
+                             _kernels.crossprod_tile())
     return _kernels.crossprod(zq)
 
 

@@ -4,8 +4,11 @@ Marked ``cuda``: every test skips where no CUDA device is present.  Run on a
 GPU host with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (``--noconftest`` because the suite's conftest configures jax, which the
 port does not need).  Shapes here are deliberately ragged: row counts off
-the 64-row tile, word counts off the 16/32-word steps, odd RHS widths.
+the kernels' row tiles, word counts off their word steps, odd RHS widths.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -256,7 +259,7 @@ def test_crossprod_matches_plain(dev, rows, kw):
                                       (65, 1, 17), (1, 129, 5),
                                       (513, 200, 128)])
 def test_crossprod_rect_matches_plain(dev, ra, rb, kw):
-    """B8: ra != rb, rows off the 64-row tile, kw off the 16-word step."""
+    """B8: ra != rb, rows off the row tile, kw off the word step."""
     rng = np.random.default_rng(ra * rb + kw)
     za = _words(rng, ra, kw).to(dev)
     zb = _words(rng, rb, kw).to(dev)
@@ -289,6 +292,91 @@ def test_crossprod_tri_matches_k3(dev, rows, kw):
     got = packed_crossprod(zq, wrap=False)
     assert torch.equal(got, packed_crossprod(zq))
     assert torch.equal(got, packed_crossprod_plain(zq))
+
+
+ALL_TWOS = int(np.uint32(0xAAAAAAAA).view(np.int32))   # code 2 everywhere
+
+
+def _three_routes_equal_plain(zq):
+    """K3, B12 (masked grid + mirror merge) and B8 (triangle=False) on one
+    panel, each bit-equal to the plain product."""
+    want = packed_crossprod_plain(zq)
+    for got in (packed_crossprod(zq), packed_crossprod(zq, wrap=False),
+                packed_crossprod(zq, triangle=False)):
+        assert got.shape == want.shape and got.dtype == torch.int32
+        assert torch.equal(got, want)
+
+
+def test_crossprod_tile_is_the_kernels(dev):
+    """The tile edge the mirror merge uses is the library's, and the
+    kernels hold two blocks an SM without spilling."""
+    src = (Path(_kernels.__file__).parent / "csrc"
+           / "crossprod.cu").read_text()
+    assert _kernels.crossprod_tile() == int(
+        re.search(r"constexpr int TILE = (\d+);", src).group(1))
+    for info in _kernels.crossprod_info().values():
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2
+
+
+@pytest.mark.parametrize("rows", [1, 127, 128, 129, 255, 257, 513])
+@pytest.mark.parametrize("kw", [1, 31, 33, 129])
+def test_crossprod_routes_at_tile_and_stage_edges(dev, rows, kw):
+    """K3 == B12 == B8 == plain with rows on and off the 128-row tile and
+    words off the 8-word stage, the 4-word copy and the 4-stage ring."""
+    _three_routes_equal_plain(
+        _words(np.random.default_rng(1000 * rows + kw), rows, kw).to(dev))
+
+
+@pytest.mark.parametrize("ra,rb,kw", [(127, 257, 33), (257, 127, 33),
+                                      (129, 513, 31), (513, 129, 129),
+                                      (1, 255, 1), (255, 1, 129),
+                                      (1100, 300, 64)])
+def test_crossprod_rect_at_tile_and_stage_edges(dev, ra, rb, kw):
+    """B8 with ra != rb both ways, off the tile and the stage; 1100 rows
+    are more than one band of 8 tile rows."""
+    rng = np.random.default_rng(ra * rb + kw)
+    za, zb = _words(rng, ra, kw).to(dev), _words(rng, rb, kw).to(dev)
+    assert torch.equal(packed_crossprod_rect(za, zb),
+                       packed_crossprod_rect_plain(za, zb))
+    assert torch.equal(packed_crossprod_rect(zb, za),
+                       packed_crossprod_rect_plain(zb, za))
+
+
+@pytest.mark.parametrize("rows", [300, 1300])
+def test_crossprod_all_two_panel(dev, rows):
+    """Every code 2 at kw 4,096: the largest sums the smoke's shapes reach
+    (4 * 16 * 4,096 = 262,144 in every entry), through all three routes
+    and B8 with ra != rb."""
+    kw = 4096
+    zq = torch.full((rows, kw), ALL_TWOS, dtype=torch.int32, device=dev)
+    full = torch.full((rows, rows), 4 * 16 * kw, dtype=torch.int32,
+                      device=dev)
+    assert torch.equal(packed_crossprod_plain(zq), full)
+    _three_routes_equal_plain(zq)
+    assert torch.equal(packed_crossprod_rect(zq[:129], zq), full[:129])
+
+
+@pytest.mark.parametrize("rows,kw", [(300, 37), (513, 128)])
+def test_crossprod_missing_indicator_packings(dev, rows, kw):
+    """0/1 packings (every field 00 or 01), as the missing and called
+    indicators are: random ones, and the corrected LD path's own packing
+    against the genotype words (B8 as ld_windowed launches it)."""
+    from miraculix_tpu_torch import from_dense
+    from miraculix_tpu_torch.io import bed
+    from miraculix_tpu_torch.ops.grm import missing_indicator_packing_t
+
+    rng = np.random.default_rng(rows + kw)
+    ind = _words(rng, rows, kw) & 0x55555555
+    _three_routes_equal_plain(ind.to(dev))
+    g = from_dense(bed.simulate_genotypes(kw * 16, rows, seed=kw,
+                                          missing_rate=0.05),
+                   keep_missing_info=True, device=dev)
+    mi = missing_indicator_packing_t(g)
+    assert int(mi.count_nonzero()) > 0
+    for za, zb in ((mi, g.zq_t), (g.zq_t[:129], mi), (mi[:200], mi)):
+        assert torch.equal(packed_crossprod_rect(za, zb),
+                           packed_crossprod_rect_plain(za, zb))
+    _three_routes_equal_plain(mi)
 
 
 @pytest.mark.parametrize("rows,kw,snps", [(64, 16, 256), (65, 17, 270),

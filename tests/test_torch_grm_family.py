@@ -8,6 +8,9 @@ are exact and must be equal; tolerances otherwise are the reference tests':
 the weighted product 5e-6 of max, grm_blocked 1e-4, grm_yang 2e-6 and
 dominance_grm 1e-5 relative to max.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -97,6 +100,15 @@ def test_crossprod_routes_equal_reference(ragged, route):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _crossprod_tile() -> int:
+    """The crossproduct kernel's tile edge as ``csrc/crossprod.cu`` declares
+    it (``_kernels.crossprod_tile()`` reads it from the built library, which
+    needs the CUDA toolkit)."""
+    src = (Path(_kernels.__file__).parent / "csrc"
+           / "crossprod.cu").read_text()
+    return int(re.search(r"constexpr int TILE = (\d+);", src).group(1))
+
+
 @pytest.mark.parametrize("rows", [64, 300, 768])
 def test_mirror_merge_restores_the_lower_tiles(rows):
     """B12 leaves the tiles wholly below the diagonal unwritten; the merge
@@ -105,7 +117,7 @@ def test_mirror_merge_restores_the_lower_tiles(rows):
     full = torch.as_tensor(rng.integers(0, 1000, (rows, rows)),
                            dtype=torch.int32)
     full = full + full.T
-    tile = _kernels.CROSSPROD_TILE
+    tile = _crossprod_tile()
     blk = torch.arange(rows) // tile
     below = blk[None, :] < blk[:, None]
     written = torch.where(below, torch.full_like(full, -7), full)
