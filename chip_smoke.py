@@ -23,10 +23,13 @@ Builds the CUDA kernels of ``miraculix_tpu_torch/csrc`` and
    check also reads a control, the plain product at the other grade
    (bf16(B) against B, bf16(w) against w), which must exceed the limit
    under the same metric.  The exact digit kernel of the f64 tier is held to its
-   plain version (exactly equal) at the three products the f64 paths
-   launch, with digits over [-64, 64].  Each kernel is timed beside its
-   plain version, one PyTorch library call on the pre-decoded panel, and
-   its bound on the card;
+   plain version (exactly equal) at the products the f64 paths launch
+   (8 and 96 digit columns, 'n' and 't'), with digits over [-64, 64], in
+   both its instances, and one ``packed_matmul_exact`` product at 12
+   columns is timed by step (digits, layout, kernel, recombination) beside
+   the FP64 tensor cores (a float64 ``torch.matmul`` of the decoded
+   panel).  Each kernel is timed beside its plain version, one PyTorch
+   library call on the pre-decoded panel, and its bound on the card;
 2. runs the main GBLUP path at that size from the launch counters' zero:
    simulate -> write .bed -> ``from_bed`` on the GPU -> ``grm`` (diagonal
    checked against ``grm_diag``) -> simulated phenotypes -> ``gblup`` (CG
@@ -65,7 +68,7 @@ Builds the CUDA kernels of ``miraculix_tpu_torch/csrc`` and
    for the f64 tier.
 
 Earlier lines report the compiler's registers and spills (and, for the
-integer crossproduct, its shared memory and resident blocks an SM), per-phase
+integer kernels, their shared memory and resident blocks an SM), per-phase
 seconds, errors, kernel rates beside their bounds, launch counts (the tall
 kernel's also by mode and width over the main paths, each of which phase 1
 must have checked), the card's
@@ -223,7 +226,9 @@ def main() -> int:
                                      subset_snps)
     from miraculix_tpu_torch.io import bed
     from miraculix_tpu_torch.ops.common import decode_planar16
-    from miraculix_tpu_torch.ops.dgemm import (packed_matmul_int8,
+    from miraculix_tpu_torch.ops.dgemm import (exact_digits, exact_recombine,
+                                               packed_matmul_exact,
+                                               packed_matmul_int8,
                                                packed_matmul_int8_plain,
                                                packed_matmul_plain,
                                                packed_matmul_tall,
@@ -278,6 +283,13 @@ def main() -> int:
         log(f"  {name}: {info['registers']} registers, {info['local_bytes']} "
             f"local (spill) bytes a thread, {info['smem_bytes']} bytes of "
             f"dynamic shared memory, {info['blocks_per_sm']} blocks an SM")
+    for name, info in _kernels.matmul_int8_info().items():
+        log(f"  matmul_int8 {name} instance: {info['registers']} registers, "
+            f"{info['local_bytes']} local (spill) bytes a thread, "
+            f"{info['smem_bytes']} bytes of dynamic shared memory, "
+            f"{info['blocks_per_sm']} blocks an SM; {info['rows']} rows x "
+            f"{info['cols']} digit columns a block, {info['words']} words a "
+            f"stage, {info['threads']} threads")
 
     # -- host set-up: the panel, its .bed fileset, the GPU container -------
     t0 = time.perf_counter()
@@ -621,12 +633,17 @@ def main() -> int:
         # grm_matvec_f64 at 12 columns (8 digits each: 96 digit columns)
         # and of the one-column refined solve and g_hat (8); digits over
         # [-64, 64] with both ends in every plane (the JSON keeps the first
-        # case).  At 8 columns the 64 x 64 tile is checked and timed beside
-        # the 256 x 16 one the launcher picks there.
+        # case).  The launcher's instance (narrow at 8 columns, wide at 96)
+        # is timed through the wrapper the f64 tier calls (digit layout and
+        # launch), then the layout and the launch apart, the other instance
+        # and the public packed_matmul_int8 (whose argument checks read the
+        # digits' range back to the host) beside it; both instances are
+        # checked exactly.
         for label, zq, cols, ncol in (("n", zn, N_SNPS, 96),
                                       ("t", gm.zq_t, N_INDIV, 96),
                                       ("n", zn, N_SNPS, 8),
                                       ("t", gm.zq_t, N_INDIV, 8)):
+            kw = zq.shape[1]
             d = torch.as_tensor(rng.integers(-64, 65, size=(cols, ncol)),
                                 dtype=torch.int8, device=dev)
             d[::7] = 64
@@ -634,13 +651,16 @@ def main() -> int:
             want = packed_matmul_int8_plain(zq, d)
             exact("matmul_int8", f"{label} ncol={ncol}",
                   packed_matmul_int8(zq, d), want)
+            other = "wide" if ncol <= 8 else "narrow"
+            exact("matmul_int8", f"{label} ncol={ncol} {other} instance",
+                  _kernels.matmul_int8(zq, d, instance=other), want)
             d8 = decode_planar16(zq, torch.int8)[:, :cols]
             dpad = torch.zeros((cols, -(-ncol // 8) * 8), dtype=torch.int8,
                                device=dev)
             dpad[:, :ncol] = d
             dpad = dpad.T.contiguous().T    # column-major, as _int_mm takes
             t = timings("matmul_int8", f"{label} ncol={ncol}",
-                        lambda: packed_matmul_int8(zq, d),
+                        lambda: _kernels.matmul_int8(zq, d),
                         lambda: packed_matmul_int8_plain(zq, d),
                         lambda: torch._int_mm(d8, dpad),
                         zq.shape[0] * cols * ncol,
@@ -648,18 +668,54 @@ def main() -> int:
                         10)
             if "ms" not in results["matmul_int8"]:
                 record("matmul_int8", 0.0, t)
-            if ncol <= _kernels.INT8_NARROW_COLS:
-                narrow_cols = _kernels.INT8_NARROW_COLS
-                _kernels.INT8_NARROW_COLS = 0       # the 64 x 64 tile
-                try:
-                    exact("matmul_int8", f"{label} ncol={ncol} tile 64x64",
-                          packed_matmul_int8(zq, d), want)
-                    wms = event_ms(lambda: packed_matmul_int8(zq, d), 10)
-                finally:
-                    _kernels.INT8_NARROW_COLS = narrow_cols
-                log(f"time matmul_int8 {label} ncol={ncol}: tile 256x16 "
-                    f"{t['ms']:.4f} ms, tile 64x64 {wms:.4f} ms")
-            del d, d8, dpad, want
+            dq = _kernels.digit_quads(d, kw)
+            lay = event_ms(lambda: _kernels.digit_quads(d, kw), 10)
+            alone = event_ms(lambda: _kernels.matmul_int8_quads(zq, dq, ncol),
+                             10)
+            oms = event_ms(lambda: _kernels.matmul_int8(zq, d, instance=other),
+                           10)
+            pub = event_ms(lambda: packed_matmul_int8(zq, d), 10)
+            log(f"time matmul_int8 {label} ncol={ncol}: "
+                f"{'wide' if other == 'narrow' else 'narrow'} instance "
+                f"{t['ms']:.4f} ms (digit layout {lay:.4f} ms, launch alone "
+                f"{alone:.4f} ms), {other} instance {oms:.4f} ms; "
+                f"packed_matmul_int8 {pub:.4f} ms")
+            del d, d8, dpad, dq, want
+            torch.cuda.empty_cache()
+
+        # one f64 product at 12 columns ('n' and 't'), split into its steps
+        # (CUDA events), beside the FP64 tensor cores' yardstick: one
+        # float64 torch.matmul of the decoded panel by B
+        for label, zq, cols in (("n", zn, N_SNPS), ("t", gm.zq_t, N_INDIV)):
+            kw = zq.shape[1]
+            b64 = torch.as_tensor(rng.standard_normal((cols, 12)),
+                                  dtype=torch.float64, device=dev)
+            d, unit = exact_digits(b64, 8)
+            dq = _kernels.digit_quads(d, kw)
+            prod = _kernels.matmul_int8_quads(zq, dq, d.shape[1])
+            got = exact_recombine(prod, unit, 8)
+            check(torch.equal(got, packed_matmul_exact(zq, b64,
+                                                       as_numpy=False)),
+                  "packed_matmul_exact differs from its steps")
+            ms_digits = event_ms(lambda: exact_digits(b64, 8), 10)
+            ms_layout = event_ms(lambda: _kernels.digit_quads(d, kw), 10)
+            ms_b10 = event_ms(lambda: _kernels.matmul_int8_quads(
+                zq, dq, d.shape[1]), 10)
+            ms_rec = event_ms(lambda: exact_recombine(prod, unit, 8), 10)
+            ms_all = event_ms(lambda: packed_matmul_exact(
+                zq, b64, as_numpy=False), 10)
+            dec64 = decode_planar16(zq, torch.float64)[:, :cols]
+            ms_f64 = event_ms(lambda: dec64 @ b64, 5)
+            want = dec64 @ b64
+            rel = float((got - want).abs().max() / want.abs().max())
+            log(f"time packed_matmul_exact {label} ncol=12: {ms_all:.4f} ms "
+                f"= digits {ms_digits:.4f} + layout {ms_layout:.4f} + B10 "
+                f"{ms_b10:.4f} + recombination {ms_rec:.4f} ms; FP64 tensor "
+                f"cores (float64 torch.matmul of the decoded panel) "
+                f"{ms_f64:.4f} ms; rel to it {rel:.3g}")
+            check(rel <= F64_RTOL, "packed_matmul_exact disagrees with the "
+                  "float64 product")
+            del b64, d, unit, dq, prod, got, dec64, want
             torch.cuda.empty_cache()
         del gm, zn
         torch.cuda.empty_cache()

@@ -140,8 +140,10 @@ def _load():
             lib.mx_crossprod_weighted.argtypes = [vp, i32, i32, vp, i32, vp,
                                                   vp]
             lib.mx_crossprod_weighted.restype = i32
-            lib.mx_matmul_int8_blocks.argtypes = [i32, i32, i32]
-            lib.mx_matmul_int8_blocks.restype = i64
+            lib.mx_matmul_int8_info.argtypes = [i32, ctypes.POINTER(i32)]
+            lib.mx_matmul_int8_info.restype = i32
+            lib.mx_matmul_int8_layout.argtypes = [vp, i32, i32, i32, vp, vp]
+            lib.mx_matmul_int8_layout.restype = i32
             lib.mx_matmul_int8.argtypes = [vp, i32, i32, vp, i32, i32, i32, vp,
                                            vp]
             lib.mx_matmul_int8.restype = i32
@@ -169,8 +171,9 @@ def _raise_if(err: int, what: str) -> None:
 # over all 65,536 SNPs of the 'n' shape drifted past 1e-5 of max |plain|
 TALL_SPLIT_ROWS = 8192
 WIDE_BLOCKS_PER_SM = 8   # launched wide blocks per SM the split aims at
-INT8_BLOCKS_PER_SM = 4   # launched digit-product blocks per SM, likewise
-INT8_NARROW_COLS = 16    # digit RHS up to this width take B10's 256 x 16 tile
+INT8_WAVES = 1           # B10's split rule fills the card this many times over
+INT8_SPLIT_WORDS = 128   # and keeps at least this many packed words a split
+INT8_INSTANCES = ("narrow", "wide")   # csrc/matmul_int8.cu's two instances
 
 
 def _sms(device) -> int:
@@ -360,41 +363,139 @@ def crossprod_weighted(zq: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def digit_words(d: torch.Tensor, kw: int) -> torch.Tensor:
+def digit_quads(d: torch.Tensor, kw: int) -> torch.Tensor:
     """int8 digits [cols <= 16*kw, n] (plane-major rows m*kw + w) -> int32
-    [4, kw, n] whose byte b of entry (q, w, j) is the digit of plane 4b + q:
-    the operand layout of ``csrc/matmul_int8.cu``."""
+    [n, ceil(kw / 4), 4, 4] whose byte b of entry (j, P, q, u) is the digit
+    of plane 4b + q, word 4P + u, column j (zero past ``cols`` and kw): the
+    digit operand of ``csrc/matmul_int8.cu``, one 16-byte chunk per
+    (column, four words, register q).  CUDA tensors take the kernel's
+    pre-pass (part of B10's launch in :func:`matmul_int8`), CPU tensors
+    this plain version."""
     cols, n = d.shape
-    full = torch.zeros((16 * kw, n), dtype=torch.int8, device=d.device)
-    full[:cols] = d
-    # [b, q, w, j] -> [q, w, j, b]; four little-endian bytes per int32
-    return (full.reshape(4, 4, kw, n).permute(1, 2, 3, 0).contiguous()
-            .view(torch.int32).reshape(4, kw, n))
+    kwq = -(-kw // 4)
+    if d.is_cuda:
+        _check(d, "d", torch.int8, 2)
+        dq = torch.empty((n, kwq, 4, 4), dtype=torch.int32, device=d.device)
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        _raise_if(_load().mx_matmul_int8_layout(_ptr(d), cols, n, kw,
+                                                _ptr(dq),
+                                                ctypes.c_void_p(stream)),
+                  "matmul_int8 layout")
+        return dq
+    full = torch.zeros((16, 4 * kwq, n), dtype=torch.int8, device=d.device)
+    planes = cols // kw
+    full[:planes, :kw] = d[:planes * kw].reshape(planes, kw, n)
+    if cols % kw:
+        full[planes, :cols % kw] = d[planes * kw:]
+    # [b, q, P, u, j] -> [j, P, q, u, b]; four little-endian bytes per int32
+    return (full.reshape(4, 4, kwq, 4, n).permute(4, 2, 1, 3, 0).contiguous()
+            .view(torch.int32).reshape(n, kwq, 4, 4))
 
 
-def matmul_int8(zq: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """B10: exact int32 decode(zq) @ D [rows, n].  ``zq`` int32 [rows, kw],
-    ``d`` int8 digits [cols <= 16*kw, n] (rows past ``cols`` count as zero);
-    the caller keeps 192 * 16 * kw < 2^31."""
+_int8_info: dict = {}
+_int8_splits: dict = {}   # (shape, instance, device, waves) -> split words
+
+
+def matmul_int8_info() -> dict:
+    """Of each instance of ``csrc/matmul_int8.cu`` on the current device:
+    registers and local (spill) bytes a thread, dynamic shared memory a
+    block, resident blocks per SM, and its geometry (rows and digit columns
+    a block, words a stage, threads a block), as the CUDA runtime and the
+    library report them."""
+    key = torch.cuda.current_device()
+    if key not in _int8_info:
+        lib, info = _load(), {}
+        for wide, name in enumerate(INT8_INSTANCES):
+            vals = (ctypes.c_int * 8)()
+            _raise_if(lib.mx_matmul_int8_info(wide, vals), "matmul_int8_info")
+            info[name] = dict(zip(("registers", "local_bytes", "smem_bytes",
+                                   "blocks_per_sm", "rows", "cols", "words",
+                                   "threads"), vals))
+            if info[name]["blocks_per_sm"] < 1:
+                raise RuntimeError(f"matmul_int8: the {name} instance fits "
+                                   "no block on an SM")
+        _int8_info[key] = info
+    return _int8_info[key]
+
+
+def int8_split_words(rows: int, kw: int, n: int, info: dict, sms: int) -> int:
+    """Packed words a contraction split of B10 sums, a whole number of the
+    instance's stages (``info``: one instance of :func:`matmul_int8_info`).
+    Where the row and column tiles alone launch fewer than INT8_WAVES waves
+    of resident blocks, the contraction splits: of the split counts from
+    the least that reaches INT8_WAVES waves to twice that, the one whose
+    last wave is fullest, each split keeping >= INT8_SPLIT_WORDS words."""
+    stage = info["words"]
+
+    def words(s):   # ceil(kw / s), rounded up to whole stages
+        per = -(-kw // s)
+        return -(-per // stage) * stage
+
+    tiles = -(-rows // info["rows"]) * -(-n // info["cols"])
+    resident = info["blocks_per_sm"] * sms
+    least = -(-INT8_WAVES * resident // tiles)
+    most = max(1, min(kw // INT8_SPLIT_WORDS, 65535))
+    if least <= 1 or most == 1:
+        return words(1)
+
+    def fill(s):
+        blocks = tiles * -(-kw // words(s))
+        return blocks / (-(-blocks // resident) * resident)
+
+    best = max(range(least, 2 * least + 1), key=lambda s: (fill(s), -s))
+    return words(min(best, most))
+
+
+def matmul_int8_quads(zq: torch.Tensor, dq: torch.Tensor, n: int,
+                      instance: str | None = None,
+                      split_words: int | None = None) -> torch.Tensor:
+    """B10 on digit quads ``dq`` (:func:`digit_quads` of the int8 digits):
+    exact int32 decode(zq) @ D [rows, n].  ``instance``: "narrow" (8 digit
+    columns a block) or "wide" (96); by default the narrow one up to 8
+    columns.  ``split_words``: words a contraction split (a multiple of the
+    instance's stage; default :func:`int8_split_words`)."""
     lib = _load()
     _check(zq, "zq", torch.int32, 2)
-    _check(d, "d", torch.int8, 2)
+    _check(dq, "dq", torch.int32, 4)
     rows, kw = zq.shape
+    if tuple(dq.shape) != (n, -(-kw // 4), 4, 4) or dq.device != zq.device \
+            or dq.data_ptr() % 16:
+        raise ValueError(f"matmul_int8: digit quads {tuple(dq.shape)} do not "
+                         f"fit zq {tuple(zq.shape)} at {n} columns (or are "
+                         "not 16-byte aligned)")
+    dev = zq.device
+    info = matmul_int8_info()
+    if instance is None:
+        instance = "narrow" if n <= info["narrow"]["cols"] else "wide"
+    if instance not in INT8_INSTANCES:
+        raise ValueError(f"instance must be narrow/wide, got {instance!r}")
+    if split_words is None:
+        key = (rows, kw, n, instance, dev, INT8_WAVES)
+        if key not in _int8_splits:
+            _int8_splits[key] = int8_split_words(rows, kw, n, info[instance],
+                                                 _sms(dev))
+        split_words = _int8_splits[key]
+    out = torch.empty((rows, n), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    LAUNCHES["matmul_int8"] += 1
+    _raise_if(lib.mx_matmul_int8(_ptr(zq), rows, kw, _ptr(dq), n,
+                                 INT8_INSTANCES.index(instance), split_words,
+                                 _ptr(out), ctypes.c_void_p(stream)),
+              "matmul_int8")
+    return out
+
+
+def matmul_int8(zq: torch.Tensor, d: torch.Tensor, instance: str | None = None,
+                split_words: int | None = None) -> torch.Tensor:
+    """B10: exact int32 decode(zq) @ D [rows, n].  ``zq`` int32 [rows, kw],
+    ``d`` int8 digits [cols <= 16*kw, n] (rows past ``cols`` count as zero);
+    the caller keeps 192 * 16 * kw < 2^31.  The digits are laid out as
+    :func:`digit_quads`; see :func:`matmul_int8_quads` for the options."""
+    _check(zq, "zq", torch.int32, 2)
+    _check(d, "d", torch.int8, 2)
+    kw = zq.shape[1]
     cols, n = d.shape
     if cols > 16 * kw or n < 1 or d.device != zq.device:
         raise ValueError(f"matmul_int8: digits {tuple(d.shape)} do not fit "
                          f"zq {tuple(zq.shape)}")
-    dev = zq.device
-    dp = digit_words(d, kw)
-    narrow = int(n <= INT8_NARROW_COLS)
-    blocks = lib.mx_matmul_int8_blocks(rows, n, narrow)
-    splits = max(1, min(-(-INT8_BLOCKS_PER_SM * _sms(dev) // blocks),
-                        kw // 256, 65535))
-    out = (torch.zeros if splits > 1 else torch.empty)(
-        (rows, n), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    LAUNCHES["matmul_int8"] += 1
-    _raise_if(lib.mx_matmul_int8(_ptr(zq), rows, kw, _ptr(dp), n, narrow,
-                                 splits, _ptr(out), ctypes.c_void_p(stream)),
-              "matmul_int8")
-    return out
+    return matmul_int8_quads(zq, digit_quads(d, kw), n, instance, split_words)

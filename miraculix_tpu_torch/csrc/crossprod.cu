@@ -59,6 +59,7 @@
 #include <stdint.h>
 
 #include "decode.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -77,41 +78,12 @@ constexpr int OUT_LD = TILE + 1;          // epilogue stage row, in int32
 static_assert((size_t)TILE * OUT_LD * 4 <= SMEM, "epilogue stage fits");
 static_assert(WARPS * WM * WN == TILE * TILE, "warps cover the tile");
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
   const unsigned a = (unsigned)__cvta_generic_to_shared(p);
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // byte offset of the 16-byte chunk c of row r in a decoded tile
@@ -127,7 +99,7 @@ __device__ __forceinline__ void load_stage(const uint32_t* __restrict__ z,
   if (vec) {                      // kw % 4 == 0: a chunk is all in or out
     const int r = threadIdx.x >> 1, c = 4 * (threadIdx.x & 1);
     const bool ok = row0 + r < rows && k0 + c < kw;
-    cp_async16(dst + r * DW + c,
+    mx::cp_async16(dst + r * DW + c,
                ok ? z + (long long)(row0 + r) * kw + k0 + c : z, ok ? 16 : 0);
   } else {
 #pragma unroll
@@ -135,7 +107,7 @@ __device__ __forceinline__ void load_stage(const uint32_t* __restrict__ z,
       const int idx = threadIdx.x + i * THREADS;
       const int r = idx / DW, c = idx % DW;
       const bool ok = row0 + r < rows && k0 + c < kw;
-      cp_async4(dst + idx,
+      mx::cp_async4(dst + idx,
                 ok ? z + (long long)(row0 + r) * kw + k0 + c : z, ok ? 4 : 0);
     }
   }
@@ -183,7 +155,7 @@ __device__ __forceinline__ void mma_stage(const uint8_t* a_dec,
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
+      for (int ni = 0; ni < 4; ++ni) mx::mma_s8(acc[mi][ni], a[mi], b[ni]);
   }
 }
 
@@ -219,24 +191,24 @@ __device__ __forceinline__ void tile_product(
 #pragma unroll
   for (int s = 0; s < STAGES; ++s) {
     if (s < nst) load(s);
-    cp_async_commit();
+    mx::cp_async_commit();
   }
-  cp_async_wait<STAGES - 1>();
+  mx::cp_async_wait<STAGES - 1>();
   __syncthreads();
   decode(0);
   for (int s = 0; s < nst; ++s) {
     // stage s + 1 has landed; stage s's decode is visible; every warp is
     // done with stage s - 1's mmas (their buffer is decode(s + 1)'s) and
     // with stage s's raw words (their slot is load(s + STAGES)'s)
-    cp_async_wait<STAGES - 2>();
+    mx::cp_async_wait<STAGES - 2>();
     __syncthreads();
     if (s + STAGES < nst) load(s + STAGES);
-    cp_async_commit();
+    mx::cp_async_commit();
     if (s + 1 < nst) decode(s + 1);
     const uint8_t* d = dec + (s & 1) * 2 * DEC_BYTES;
     mma_stage(d, same ? d : d + DEC_BYTES, acc);
   }
-  cp_async_wait<0>();
+  mx::cp_async_wait<0>();
   __syncthreads();
 }
 

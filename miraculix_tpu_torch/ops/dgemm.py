@@ -232,24 +232,43 @@ def packed_matmul_exact(zq: torch.Tensor, b, *, digits: int = 8,
             acc += packed_matmul_exact(zq[:, c0:c1], bc, digits=digits,
                                        as_numpy=False, _kw_cap=kw_cap)
         return acc.cpu().numpy() if as_numpy else acc
+    d, unit = exact_digits(b64, digits)
+    acc = exact_recombine(_matmul_int8(zq, d), unit, digits)
+    return acc.cpu().numpy() if as_numpy else acc
+
+
+def exact_digits(b64: torch.Tensor, digits: int) -> tuple:
+    """The digit pass's operand: float64 B [cols, n] -> (int8 digits
+    [cols, digits * n], digit j of column i in column j*n + i; the float64
+    unit [n] of each column's first digit).  Each column is scaled by a
+    power of two into (-1/2, 1/2) and expanded in base 2^7, rounding half to
+    even, so residuals stay in [-1/2, 1/2] and digits in [-64, 64]."""
+    cols, n = b64.shape
     absmax = b64.abs().amax(dim=0)
     # absmax = m * 2^e with m in [0.5, 1): |b| / 2^e < 1, so |x| < 1/2
     e = torch.where(absmax > 0, torch.frexp(absmax).exponent,
-                    torch.zeros((), dtype=torch.int32, device=dev))
-    scale = torch.exp2(e.to(torch.float64))
-    x = b64 / (2.0 * scale)
+                    torch.zeros((), dtype=torch.int32, device=b64.device))
+    unit = 2.0 * torch.exp2(e.to(torch.float64))
+    x = b64 / unit
     planes = []
     for _ in range(digits):
         d = torch.round(x * 128.0)           # half to even, as np.rint
         x = x * 128.0 - d                    # residual in [-1/2, 1/2]
         planes.append(d)
-    p = _matmul_int8(zq, torch.stack(planes, dim=1).reshape(cols, digits * n)
-                     .to(torch.int8))        # digit j in columns j*n ...
-    acc = torch.zeros((rows, n), dtype=torch.float64, device=dev)
+    return (torch.stack(planes, dim=1).reshape(cols, digits * n)
+            .to(torch.int8), unit)
+
+
+def exact_recombine(p: torch.Tensor, unit: torch.Tensor,
+                    digits: int) -> torch.Tensor:
+    """The digit products p int32 [rows, digits * n] -> float64 [rows, n],
+    digit j weighted by unit * 128^-(j + 1), in the reference's order."""
+    n = unit.shape[0]
+    acc = torch.zeros((p.shape[0], n), dtype=torch.float64, device=p.device)
     for j in range(digits):
         acc += p[:, j * n:(j + 1) * n].to(torch.float64) * (
-            2.0 * scale * 128.0 ** -(j + 1))[None, :]
-    return acc.cpu().numpy() if as_numpy else acc
+            unit * 128.0 ** -(j + 1))[None, :]
+    return acc
 
 
 def packed_matmul_f64(zq: torch.Tensor, b, *, as_numpy: bool = False,

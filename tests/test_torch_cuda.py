@@ -409,9 +409,10 @@ def test_crossprod_weighted_matches_plain(dev, rows, kw, snps, triangle):
     (1, 5, 80), (65, 37, 590), (300, 130, 2080), (16385, 21, 336)])
 @pytest.mark.parametrize("n", [1, 7, 8, 96, 1000])
 def test_matmul_int8_matches_plain(dev, rows, kw, cols, n):
-    """B10 against its plain version, exactly: rows off both tile heights,
-    kw off the 8- and 16-word steps, digit RHS shorter than 16*kw, widths on
-    both tile shapes and ragged column tiles.  The digits are the extremes
+    """B10 against its plain version, exactly, at the launcher's instance
+    and splits: rows off both instances' row tiles (128, 256), kw off the
+    4-word chunk and the stages, digit RHS shorter than 16*kw, widths on
+    both instances and ragged column groups.  The digits are the extremes
     (-64, 64 and the int8 ends) in every byte lane, against words of all
     2s and random words."""
     rng = np.random.default_rng(rows * kw + n)
@@ -429,17 +430,86 @@ def test_matmul_int8_matches_plain(dev, rows, kw, cols, n):
 
 @pytest.mark.parametrize("rows,kw,cols", [(65, 37, 590), (16385, 21, 336)])
 @pytest.mark.parametrize("n", [1, 8, 16])
-def test_matmul_int8_wide_tile_at_narrow_widths(dev, monkeypatch, rows, kw,
-                                                cols, n):
-    """The 64 x 64 tile where the launcher would pick the 256 x 16 one."""
-    monkeypatch.setattr(_kernels, "INT8_NARROW_COLS", 0)
+def test_matmul_int8_wide_tile_at_narrow_widths(dev, rows, kw, cols, n):
+    """The wide instance (96 columns a block) where the launcher would pick
+    the narrow one, and past it."""
     rng = np.random.default_rng(rows + n)
     zq = _words(rng, rows, kw).to(dev)
     d = torch.as_tensor(rng.choice(np.array([-64, -1, 0, 1, 64]),
                                    size=(cols, n)), dtype=torch.int8,
                         device=dev)
-    assert torch.equal(packed_matmul_int8(zq, d),
+    assert torch.equal(_kernels.matmul_int8(zq, d, instance="wide"),
                        packed_matmul_int8_plain(zq, d))
+
+
+@pytest.mark.parametrize("n", [9, 96, 97])
+def test_matmul_int8_narrow_tile_at_wide_widths(dev, n):
+    """The narrow instance over many column groups of 8."""
+    rng = np.random.default_rng(n)
+    zq = _words(rng, 300, 130).to(dev)
+    d = torch.as_tensor(rng.integers(-64, 65, size=(2000, n)),
+                        dtype=torch.int8, device=dev)
+    assert torch.equal(_kernels.matmul_int8(zq, d, instance="narrow"),
+                       packed_matmul_int8_plain(zq, d))
+
+
+@pytest.mark.parametrize("instance", ["narrow", "wide"])
+@pytest.mark.parametrize("rows,kw,n,split_words", [
+    (300, 130, 8, 32), (300, 130, 96, 32), (1000, 1024, 12, 64),
+    (129, 77, 5, 32), (4097, 512, 96, 160)])
+def test_matmul_int8_split_paths(dev, instance, rows, kw, n, split_words):
+    """Forced contraction splits (whole stages: multiples of 32 words fit
+    both instances) with their atomic adds, the last split short, both
+    copy paths (kw % 4)."""
+    rng = np.random.default_rng(rows + kw + n)
+    zq = _words(rng, rows, kw).to(dev)
+    d = torch.as_tensor(rng.integers(-64, 65, size=(16 * kw - 3, n)),
+                        dtype=torch.int8, device=dev)
+    assert torch.equal(
+        _kernels.matmul_int8(zq, d, instance=instance,
+                             split_words=split_words),
+        packed_matmul_int8_plain(zq, d))
+
+
+@pytest.mark.parametrize("cols,kw,n", [(80, 5, 1), (590, 37, 7),
+                                       (2080, 130, 96), (336, 21, 97),
+                                       (16 * 64, 64, 8)])
+def test_matmul_int8_layout_prepass_matches_plain(dev, cols, kw, n):
+    """The digit-quad pre-pass on the card equals its plain version byte for
+    byte: partial planes, kw off the 4-word chunk, ragged widths."""
+    rng = np.random.default_rng(cols + n)
+    d = torch.as_tensor(rng.integers(-128, 128, size=(cols, n)),
+                        dtype=torch.int8)
+    got = _kernels.digit_quads(d.to(dev), kw)
+    assert torch.equal(got.cpu(), _kernels.digit_quads(d, kw))
+
+
+def test_matmul_int8_instances_fit_as_designed(dev):
+    """No spills; one wide block (160 KB) and two narrow ones (80 KB) an
+    SM; the geometry the splits assume."""
+    info = _kernels.matmul_int8_info()
+    assert info["wide"]["blocks_per_sm"] >= 1
+    assert info["narrow"]["blocks_per_sm"] >= 2
+    for name, (rows, cols) in (("narrow", (128, 8)), ("wide", (256, 96))):
+        assert info[name]["local_bytes"] == 0
+        assert (info[name]["rows"], info[name]["cols"]) == (rows, cols)
+
+
+@pytest.mark.parametrize("digit", [64, -64])
+@pytest.mark.parametrize("n", [8, 96])
+def test_matmul_int8_largest_sums_at_the_chunk_cap(dev, digit, n):
+    """All-2 words by all-+-64 digits at kw = 2^19, the f64 tier's chunk
+    cap: every output is +-2 * 64 * 16 * 2^19 = +-2^30, the largest sum
+    the f64 tier produces; saturation or overflow of the s32 path, or a
+    split added twice, would show.  Rows off 16 and the launcher's splits."""
+    kw = 2 ** 19
+    zq = torch.full((40, kw), int(np.uint32(0xAAAAAAAA).view(np.int32)),
+                    dtype=torch.int32, device=dev)
+    d = torch.full((16 * kw, n), digit, dtype=torch.int8, device=dev)
+    got = packed_matmul_int8(zq, d)
+    assert torch.equal(got, torch.full((40, n), digit * 2 * 16 * kw,
+                                       dtype=torch.int32, device=dev))
+    assert torch.equal(got, packed_matmul_int8_plain(zq[:1], d).expand(40, n))
 
 
 def test_matmul_int8_rejects_what_it_cannot_hold_exactly(dev):

@@ -21,7 +21,6 @@ from miraculix_tpu.ops import dgemm as ref_dgemm  # noqa: E402
 from miraculix_tpu.ops import ref_impl  # noqa: E402
 
 import miraculix_tpu_torch as mt  # noqa: E402
-from miraculix_tpu_torch import _kernels  # noqa: E402
 from miraculix_tpu_torch import gblup as pt_gblup  # noqa: E402
 from miraculix_tpu_torch import solve as pt_solve  # noqa: E402
 from miraculix_tpu_torch.ops import dgemm as pt_dgemm  # noqa: E402
@@ -73,26 +72,6 @@ def test_packed_matmul_int8_plain_equals_reference(wide, cols):
     np.testing.assert_array_equal(want, g[:, :cols].astype(np.int64) @ d)
     with pytest.raises(ValueError, match=r"\[-128, 127\]"):
         pt_dgemm.packed_matmul_int8(port_zq, d * 3)
-
-
-@pytest.mark.parametrize("n", [3, 24])
-def test_digit_words_carry_the_kernel_arithmetic(wide, n):
-    """The launcher's re-laid digit words, multiplied as the kernel does
-    (r_q = (w >> 2q) & 0x03030303 against byte b = plane 4b + q, signed),
-    give the plain product: the layout the CUDA kernel reads."""
-    _, zq, port_zq = wide
-    kw = zq.shape[1]
-    d = np.random.default_rng(n).choice(np.array([-128, -64, -1, 1, 64, 127]),
-                                        size=(1500, n))
-    dp = _kernels.digit_words(torch.as_tensor(d, dtype=torch.int8), kw)
-    dbytes = dp.numpy().view(np.int8).reshape(4, kw, n, 4).astype(np.int64)
-    acc = np.zeros((zq.shape[0], n), np.int64)
-    for q in range(4):
-        r = ((zq.astype(np.int64) >> (2 * q)) & 0x03030303)
-        for b in range(4):
-            acc += ((r >> (8 * b)) & 0xFF) @ dbytes[q, :, :, b]
-    want = pt_dgemm.packed_matmul_int8_plain(port_zq, torch.as_tensor(d))
-    np.testing.assert_array_equal(acc, want.numpy())
 
 
 @pytest.mark.parametrize("snps,kw_cap", [(1500, 2 ** 19), (8192, 128)])

@@ -1,11 +1,12 @@
 """Time variants of the integer crossproduct kernel side by side on one GPU.
 
     python tools/torch_crossprod_sweep.py [--rounds 2] [--source NAME=PATH]
+        [--only NAME]
 
 Each variant is ``miraculix_tpu_torch/csrc/crossprod.cu`` with some of its
 text replaced (a constant, the launch bounds, or a diagnostic cut); each
-``--source`` is another tree's ``crossprod.cu`` (with the ``decode.cuh``
-beside it: a parent tree unpacked by ``git archive``, say).  Each is built
+``--source`` is another tree's ``crossprod.cu`` (with the headers beside
+it: a parent tree unpacked by ``git archive``, say).  Each is built
 with the package's nvcc flags into a library of its own (one nvcc each, all
 started together).  On random genotype words at
 ``chip_smoke.py``'s shapes -- K3 at 16,384 rows x 4,096 words, B8 at the
@@ -14,7 +15,8 @@ started together).  On random genotype words at
 events; the order forward, then backward, ``--rounds`` times) and the
 median of each is printed with its rate, registers, resident blocks per SM
 and whether its K3 equals the committed kernel's (diagnostic cuts compute
-something else and are expected to differ).
+something else and are expected to differ).  ``--only`` keeps the named
+variants (the committed kernel is always built).
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ VARIANTS = {
     # instead of ldmatrix): the mma.sync pipe's own time
     "cut: decode ALU": [(r"mx::int8_quads\(w\[i\]\)",
                          "make_uint4(w[i], w[i], w[i], w[i])")],
-    "cut: mma": [(r"mma_s8\(acc\[mi\]\[ni\], a\[mi\], b\[ni\]\);",
+    "cut: mma": [(r"mx::mma_s8\(acc\[mi\]\[ni\], a\[mi\], b\[ni\]\);",
                   "acc[mi][ni][0] ^= a[mi][0] ^ b[ni][0];")],
     "cut: all but the mma": [
         (r"decode_stage\(r[^;]*;", ";"),
@@ -55,16 +57,20 @@ VARIANTS = {
 DIAGNOSTIC = ("cut: ",)
 
 
-def build(csrc: Path, sources: dict, out: Path, nvcc: str, flags) -> dict:
-    """One library per variant and per other source (a crossprod.cu with
-    its decode.cuh beside it), compiled in parallel -> name -> path."""
+def build(csrc: Path, sources: dict, out: Path, nvcc: str, flags,
+          only=()) -> dict:
+    """One library per variant (those in ``only`` and the committed one,
+    where ``only`` is given) and per other source (a crossprod.cu with its
+    headers beside it), compiled in parallel -> name -> path."""
     jobs = {}
-    todo = [(name, csrc, subs) for name, subs in VARIANTS.items()]
+    todo = [(name, csrc, subs) for name, subs in VARIANTS.items()
+            if not only or name in only or name == "committed"]
     todo += [(name, Path(src).parent, []) for name, src in sources.items()]
     for i, (name, src_dir, subs) in enumerate(todo):
         d = out / f"v{i}"
         d.mkdir()
-        shutil.copy(src_dir / "decode.cuh", d)
+        for header in src_dir.glob("*.cuh"):
+            shutil.copy(header, d)
         text = (src_dir / "crossprod.cu").read_text()
         for pat, rep in subs:
             text, n = re.subn(pat, rep, text, flags=re.S)
@@ -97,7 +103,10 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--source", action="append", default=[],
                     metavar="NAME=PATH", help="also time this crossprod.cu "
-                    "(another tree's, with the decode.cuh beside it)")
+                    "(another tree's, with its headers beside it)")
+    ap.add_argument("--only", action="append", default=[], metavar="NAME",
+                    choices=list(VARIANTS), help="time only this variant "
+                    "(repeatable; the committed kernel is always timed)")
     args = ap.parse_args()
     rounds = args.rounds
     sources = dict(a.split("=", 1) for a in args.source)
@@ -108,7 +117,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
         built = build(_kernels._CSRC, sources, Path(tmp), _kernels._nvcc(),
-                      _kernels.NVCC_FLAGS)
+                      _kernels.NVCC_FLAGS, args.only)
         libs = {}
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         for name, path in built.items():
