@@ -633,12 +633,11 @@ def main() -> int:
         # grm_matvec_f64 at 12 columns (8 digits each: 96 digit columns)
         # and of the one-column refined solve and g_hat (8); digits over
         # [-64, 64] with both ends in every plane (the JSON keeps the first
-        # case).  The launcher's instance (narrow at 8 columns, wide at 96)
-        # is timed through the wrapper the f64 tier calls (digit layout and
-        # launch), then the layout and the launch apart, the other instance
-        # and the public packed_matmul_int8 (whose argument checks read the
-        # digits' range back to the host) beside it; both instances are
-        # checked exactly.
+        # case).  The kernel's time is that of the public packed_matmul_int8
+        # (argument checks, digit layout, launch), as before the kernel was
+        # rewritten; beside it the launcher the f64 tier calls, the layout
+        # and the launch alone, and the other instance (narrow at 96
+        # columns, wide at 8); both instances are checked exactly.
         for label, zq, cols, ncol in (("n", zn, N_SNPS, 96),
                                       ("t", gm.zq_t, N_INDIV, 96),
                                       ("n", zn, N_SNPS, 8),
@@ -652,15 +651,17 @@ def main() -> int:
             exact("matmul_int8", f"{label} ncol={ncol}",
                   packed_matmul_int8(zq, d), want)
             other = "wide" if ncol <= 8 else "narrow"
+            dq = _kernels.digit_quads(d, kw)
             exact("matmul_int8", f"{label} ncol={ncol} {other} instance",
-                  _kernels.matmul_int8(zq, d, instance=other), want)
+                  _kernels.matmul_int8_quads(zq, dq, ncol, instance=other),
+                  want)
             d8 = decode_planar16(zq, torch.int8)[:, :cols]
             dpad = torch.zeros((cols, -(-ncol // 8) * 8), dtype=torch.int8,
                                device=dev)
             dpad[:, :ncol] = d
             dpad = dpad.T.contiguous().T    # column-major, as _int_mm takes
             t = timings("matmul_int8", f"{label} ncol={ncol}",
-                        lambda: _kernels.matmul_int8(zq, d),
+                        lambda: packed_matmul_int8(zq, d),
                         lambda: packed_matmul_int8_plain(zq, d),
                         lambda: torch._int_mm(d8, dpad),
                         zq.shape[0] * cols * ncol,
@@ -668,18 +669,17 @@ def main() -> int:
                         10)
             if "ms" not in results["matmul_int8"]:
                 record("matmul_int8", 0.0, t)
-            dq = _kernels.digit_quads(d, kw)
+            wrap = event_ms(lambda: _kernels.matmul_int8(zq, d), 10)
             lay = event_ms(lambda: _kernels.digit_quads(d, kw), 10)
             alone = event_ms(lambda: _kernels.matmul_int8_quads(zq, dq, ncol),
                              10)
-            oms = event_ms(lambda: _kernels.matmul_int8(zq, d, instance=other),
-                           10)
-            pub = event_ms(lambda: packed_matmul_int8(zq, d), 10)
-            log(f"time matmul_int8 {label} ncol={ncol}: "
-                f"{'wide' if other == 'narrow' else 'narrow'} instance "
-                f"{t['ms']:.4f} ms (digit layout {lay:.4f} ms, launch alone "
-                f"{alone:.4f} ms), {other} instance {oms:.4f} ms; "
-                f"packed_matmul_int8 {pub:.4f} ms")
+            oms = event_ms(lambda: _kernels.matmul_int8_quads(
+                zq, dq, ncol, instance=other), 10)
+            log(f"time matmul_int8 {label} ncol={ncol}: packed_matmul_int8 "
+                f"{t['ms']:.4f} ms, the launcher {wrap:.4f} ms (digit layout "
+                f"{lay:.4f} ms, {'wide' if other == 'narrow' else 'narrow'} "
+                f"instance alone {alone:.4f} ms), {other} instance alone "
+                f"{oms:.4f} ms")
             del d, d8, dpad, dq, want
             torch.cuda.empty_cache()
 

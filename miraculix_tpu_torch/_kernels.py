@@ -171,8 +171,7 @@ def _raise_if(err: int, what: str) -> None:
 # over all 65,536 SNPs of the 'n' shape drifted past 1e-5 of max |plain|
 TALL_SPLIT_ROWS = 8192
 WIDE_BLOCKS_PER_SM = 8   # launched wide blocks per SM the split aims at
-INT8_WAVES = 1           # B10's split rule fills the card this many times over
-INT8_SPLIT_WORDS = 128   # and keeps at least this many packed words a split
+INT8_SPLIT_WORDS = 128   # B10's splits keep at least this many packed words
 INT8_INSTANCES = ("narrow", "wide")   # csrc/matmul_int8.cu's two instances
 
 
@@ -393,7 +392,7 @@ def digit_quads(d: torch.Tensor, kw: int) -> torch.Tensor:
 
 
 _int8_info: dict = {}
-_int8_splits: dict = {}   # (shape, instance, device, waves) -> split words
+_int8_splits: dict = {}   # (shape, instance, device) -> split words
 
 
 def matmul_int8_info() -> dict:
@@ -418,12 +417,13 @@ def matmul_int8_info() -> dict:
     return _int8_info[key]
 
 
-def int8_split_words(rows: int, kw: int, n: int, info: dict, sms: int) -> int:
+def int8_split_words(rows: int, kw: int, n: int, info: dict, sms: int,
+                     waves: int = 1) -> int:
     """Packed words a contraction split of B10 sums, a whole number of the
     instance's stages (``info``: one instance of :func:`matmul_int8_info`).
-    Where the row and column tiles alone launch fewer than INT8_WAVES waves
+    Where the row and column tiles alone launch fewer than ``waves`` waves
     of resident blocks, the contraction splits: of the split counts from
-    the least that reaches INT8_WAVES waves to twice that, the one whose
+    the least that reaches ``waves`` waves to twice that, the one whose
     last wave is fullest, each split keeping >= INT8_SPLIT_WORDS words."""
     stage = info["words"]
 
@@ -433,7 +433,7 @@ def int8_split_words(rows: int, kw: int, n: int, info: dict, sms: int) -> int:
 
     tiles = -(-rows // info["rows"]) * -(-n // info["cols"])
     resident = info["blocks_per_sm"] * sms
-    least = -(-INT8_WAVES * resident // tiles)
+    least = -(-waves * resident // tiles)
     most = max(1, min(kw // INT8_SPLIT_WORDS, 65535))
     if least <= 1 or most == 1:
         return words(1)
@@ -470,7 +470,7 @@ def matmul_int8_quads(zq: torch.Tensor, dq: torch.Tensor, n: int,
     if instance not in INT8_INSTANCES:
         raise ValueError(f"instance must be narrow/wide, got {instance!r}")
     if split_words is None:
-        key = (rows, kw, n, instance, dev, INT8_WAVES)
+        key = (rows, kw, n, instance, dev)
         if key not in _int8_splits:
             _int8_splits[key] = int8_split_words(rows, kw, n, info[instance],
                                                  _sms(dev))
@@ -485,12 +485,11 @@ def matmul_int8_quads(zq: torch.Tensor, dq: torch.Tensor, n: int,
     return out
 
 
-def matmul_int8(zq: torch.Tensor, d: torch.Tensor, instance: str | None = None,
-                split_words: int | None = None) -> torch.Tensor:
+def matmul_int8(zq: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """B10: exact int32 decode(zq) @ D [rows, n].  ``zq`` int32 [rows, kw],
     ``d`` int8 digits [cols <= 16*kw, n] (rows past ``cols`` count as zero);
     the caller keeps 192 * 16 * kw < 2^31.  The digits are laid out as
-    :func:`digit_quads`; see :func:`matmul_int8_quads` for the options."""
+    :func:`digit_quads` and go through :func:`matmul_int8_quads`."""
     _check(zq, "zq", torch.int32, 2)
     _check(d, "d", torch.int8, 2)
     kw = zq.shape[1]
@@ -498,4 +497,4 @@ def matmul_int8(zq: torch.Tensor, d: torch.Tensor, instance: str | None = None,
     if cols > 16 * kw or n < 1 or d.device != zq.device:
         raise ValueError(f"matmul_int8: digits {tuple(d.shape)} do not fit "
                          f"zq {tuple(zq.shape)}")
-    return matmul_int8_quads(zq, digit_quads(d, kw), n, instance, split_words)
+    return matmul_int8_quads(zq, digit_quads(d, kw), n)

@@ -186,9 +186,13 @@ def packed_matmul_int8(zq: torch.Tensor, b) -> torch.Tensor:
     if b.dim() != 2 or b.shape[0] > 16 * zq.shape[1] or b.shape[1] < 1:
         raise ValueError(f"digits {tuple(b.shape)} do not fit packed words "
                          f"{tuple(zq.shape)}")
-    if b.dtype.is_floating_point or b.dtype.is_complex or (b.numel() and (
-            int(b.min()) < -128 or int(b.max()) > 127)):
+    if b.dtype.is_floating_point or b.dtype.is_complex:
         raise ValueError("digits must be integers in [-128, 127]")
+    if b.dtype != torch.int8 and b.numel():
+        # the one read back to the host; int8 digits are in range by type
+        lo, hi = (int(v) for v in torch.aminmax(b))
+        if lo < -128 or hi > 127:
+            raise ValueError("digits must be integers in [-128, 127]")
     return _matmul_int8(zq, b)
 
 

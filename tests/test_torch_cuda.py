@@ -428,6 +428,13 @@ def test_matmul_int8_matches_plain(dev, rows, kw, cols, n):
     assert torch.equal(got, packed_matmul_int8_plain(zq, d))
 
 
+def _forced(zq, d, **how):
+    """B10 with its instance or splits forced (``matmul_int8_quads``'s
+    options) on the digit quads of ``d``."""
+    return _kernels.matmul_int8_quads(
+        zq, _kernels.digit_quads(d, zq.shape[1]), d.shape[1], **how)
+
+
 @pytest.mark.parametrize("rows,kw,cols", [(65, 37, 590), (16385, 21, 336)])
 @pytest.mark.parametrize("n", [1, 8, 16])
 def test_matmul_int8_wide_tile_at_narrow_widths(dev, rows, kw, cols, n):
@@ -438,7 +445,7 @@ def test_matmul_int8_wide_tile_at_narrow_widths(dev, rows, kw, cols, n):
     d = torch.as_tensor(rng.choice(np.array([-64, -1, 0, 1, 64]),
                                    size=(cols, n)), dtype=torch.int8,
                         device=dev)
-    assert torch.equal(_kernels.matmul_int8(zq, d, instance="wide"),
+    assert torch.equal(_forced(zq, d, instance="wide"),
                        packed_matmul_int8_plain(zq, d))
 
 
@@ -449,7 +456,7 @@ def test_matmul_int8_narrow_tile_at_wide_widths(dev, n):
     zq = _words(rng, 300, 130).to(dev)
     d = torch.as_tensor(rng.integers(-64, 65, size=(2000, n)),
                         dtype=torch.int8, device=dev)
-    assert torch.equal(_kernels.matmul_int8(zq, d, instance="narrow"),
+    assert torch.equal(_forced(zq, d, instance="narrow"),
                        packed_matmul_int8_plain(zq, d))
 
 
@@ -466,8 +473,7 @@ def test_matmul_int8_split_paths(dev, instance, rows, kw, n, split_words):
     d = torch.as_tensor(rng.integers(-64, 65, size=(16 * kw - 3, n)),
                         dtype=torch.int8, device=dev)
     assert torch.equal(
-        _kernels.matmul_int8(zq, d, instance=instance,
-                             split_words=split_words),
+        _forced(zq, d, instance=instance, split_words=split_words),
         packed_matmul_int8_plain(zq, d))
 
 

@@ -25,7 +25,8 @@ from miraculix_tpu.io import codec  # noqa: E402
 from miraculix_tpu.ops import dgemm as ref_dgemm  # noqa: E402
 
 from miraculix_tpu_torch import _kernels  # noqa: E402
-from miraculix_tpu_torch.ops.dgemm import packed_matmul_int8_plain  # noqa: E402
+from miraculix_tpu_torch.ops.dgemm import (  # noqa: E402
+    packed_matmul_int8, packed_matmul_int8_plain)
 
 SRC = (Path(_kernels.__file__).parent / "csrc" / "matmul_int8.cu").read_text()
 LANE = np.arange(32)
@@ -468,21 +469,24 @@ def test_split_rule_takes_whole_stages_and_fills_the_card():
     """The launcher's split rule at the smoke's four shapes ('n' 16,384 x
     4,096 words, 't' 65,536 x 1,024; 8 and 96 digit columns, with one wide
     and two narrow blocks an SM on 132 SMs): whole stages a split, every
-    word in one split, at least INT8_WAVES waves, the last wave >= 90%
-    full; short contractions do not split."""
+    word in one split, at least the waves asked for (one by default, two
+    as a timing tool asks), the last wave >= 90% full; short contractions
+    do not split."""
     resident = {"narrow": 2, "wide": 1}
     for rows, kw in ((16384, 4096), (65536, 1024)):
         for n, cfg in ((8, "narrow"), (96, "wide")):
             c = CFGS[cfg]
             info = {"rows": c.BM, "cols": c.BN, "words": c.DW,
                     "blocks_per_sm": resident[cfg]}
-            per = _kernels.int8_split_words(rows, kw, n, info, 132)
-            splits = -(-kw // per)
-            assert per % c.DW == 0 and (splits - 1) * per < kw <= splits * per
-            blocks = -(-rows // c.BM) * -(-n // c.BN) * splits
-            waves = blocks / (resident[cfg] * 132)
-            assert waves >= _kernels.INT8_WAVES
-            assert waves / np.ceil(waves) >= 0.9
+            for want, how in ((1, {}), (2, {"waves": 2})):
+                per = _kernels.int8_split_words(rows, kw, n, info, 132, **how)
+                splits = -(-kw // per)
+                assert per % c.DW == 0
+                assert (splits - 1) * per < kw <= splits * per
+                blocks = -(-rows // c.BM) * -(-n // c.BN) * splits
+                waves = blocks / (resident[cfg] * 132)
+                assert waves >= want
+                assert waves / np.ceil(waves) >= 0.9
     info = {"rows": 256, "cols": 96, "words": 16, "blocks_per_sm": 1}
     assert _kernels.int8_split_words(40, 100, 96, info, 132) == 112
 
@@ -502,3 +506,26 @@ def test_replay_equals_plain_and_reference():
     np.testing.assert_array_equal(replay(WIDE, z, d, 64), want)
     np.testing.assert_array_equal(replay(NARROW, z, d[:, :8], 64),
                                   want[:, :8])
+
+
+@pytest.mark.parametrize("dtype,low,high,ok", [
+    (torch.int8, -128, 127, True),
+    (torch.int16, -128, 127, True),
+    (torch.int16, -129, 0, False),
+    (torch.int32, 0, 128, False),
+    (torch.int64, -200, 5, False),
+    (torch.uint8, 0, 200, False)])
+def test_public_product_checks_the_digit_range(dtype, low, high, ok):
+    """``packed_matmul_int8`` takes int8 digits as they are (in range by
+    type, so nothing is read back) and reads the range of wider integers:
+    both ends of [-128, 127] pass, one past either end raises."""
+    rng = np.random.default_rng(int(high - low))
+    z = torch.from_numpy(_words(rng, 20, 6).view(np.int32))
+    d = torch.zeros((90, 3), dtype=dtype)
+    d[0, 0], d[89, 2] = low, high
+    if ok:
+        got = packed_matmul_int8(z, d)
+        assert torch.equal(got, packed_matmul_int8_plain(z, d.to(torch.int8)))
+    else:
+        with pytest.raises(ValueError, match=r"\[-128, 127\]"):
+            packed_matmul_int8(z, d)
