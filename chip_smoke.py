@@ -13,8 +13,11 @@ Builds the CUDA kernels of ``miraculix_tpu_torch/csrc`` and
    the split grade as a second control), its time split by kernel, the tall
    and wide kernels timed side by side at the bf16 and f32 tiers' 65 and
    128 columns, the wide dgemm kernel in its four RHS instances
-   (fast split, f32, bf16, bf16 hi||lo; error <= 4e-6 of each output's sum
-   of |terms|), each against a plain version that rounds B the same way,
+   (fast split, f32, bf16, bf16 hi||lo: two, three, one and two bf16
+   passes; error <= 4e-6 of each output's sum of |terms|), each against a
+   plain version that rounds B the same way, the split and f32 instances
+   also on a positive B over 65,536 terms held to the float64 product, the
+   wide kernel's time split by kernel,
    the integer crossproduct (exactly equal), the rectangular crossproduct
    at an LD row block and a ``grm_blocked`` tile (random and all-2
    genotypes) and the masked-grid crossproduct on the whole square (exactly
@@ -68,7 +71,7 @@ Builds the CUDA kernels of ``miraculix_tpu_torch/csrc`` and
    for the f64 tier.
 
 Earlier lines report the compiler's registers and spills (and, for the
-integer kernels, their shared memory and resident blocks an SM), per-phase
+integer and wide kernels, their shared memory and resident blocks an SM), per-phase
 seconds, errors, kernel rates beside their bounds, launch counts (the tall
 kernel's also by mode and width over the main paths, each of which phase 1
 must have checked), the card's
@@ -92,8 +95,9 @@ MISSING_RATE = 0.001  # the missing-aware phase: a 99.9% call rate
 F64_RTOL = 1e-12      # the f64 tier vs float64 products, relative to max
 KERNEL_RTOL = 1e-5    # tall kernel vs plain, relative to max |plain|
 # wide kernel vs plain, relative to each output's sum of |terms|: on the
-# H100 the sound instances read <= 4.2e-7 and the other-grade controls
-# >= 5.3e-5 at 'n' (65,536 terms), so the limit sits ~10x from each
+# H100 the sound instances read <= 3.5e-7 on random B and <= 8.1e-7 on a
+# positive B, the other-grade controls >= 5.6e-5 at 'n' (65,536 terms), so
+# the limit sits 5-10x from each
 WIDE_RTOL = 4e-6
 DIAG_RTOL = 1e-4      # grm() diagonal vs grm_diag(scale=True)
 MIN_BV_CORR = 0.7     # corr(g_hat, true BV), in-sample, h2 = 0.5
@@ -149,10 +153,9 @@ SOURCES = {  # kernel -> (source, TPU kernel it replaces)
 # the unit and passes that bound each kernel: one rule for the products,
 # the bf16 tensor-core passes that the tier's grade needs (genotypes are
 # exact in bf16; B takes one bf16 piece at the bf16 tier, hi + lo at the
-# split tier, three pieces for its 24 bits at the f32 tier).  The split and
-# f32 names are one kernel instance (B as given) at two tiers' bounds.  The
-# integer crossproducts and the exact digit product are one int8 pass; the
-# weighted one is f32 grade.
+# split tier, three pieces for its 24 bits at the f32 tier), as the tall and
+# wide kernels run them.  The integer crossproducts and the exact digit
+# product are one int8 pass; the weighted one is f32 grade.
 UNIT = {"tall_dgemm": ("bf16", 2), "tall_dgemm_cv": ("bf16", 2),
         "tall_dgemm_bf16": ("bf16", 1), "tall_dgemm_f32": ("bf16", 3),
         "wide_dgemm_split": ("bf16", 2), "wide_dgemm_hilo": ("bf16", 2),
@@ -290,6 +293,13 @@ def main() -> int:
             f"{info['blocks_per_sm']} blocks an SM; {info['rows']} rows x "
             f"{info['cols']} digit columns a block, {info['words']} words a "
             f"stage, {info['threads']} threads")
+    for (passes, nt), info in _kernels.wide_info().items():
+        log(f"  wide_dgemm {passes} parts x {nt} tiles: {info['registers']} "
+            f"registers, {info['local_bytes']} local (spill) bytes a thread, "
+            f"{info['smem_bytes']} bytes of dynamic shared memory, "
+            f"{info['blocks_per_sm']} blocks an SM; {info['rows']} rows x "
+            f"{info['cols']} columns a block, {info['words']} words a stage "
+            f"x {info['stages']}, promoted every {info['promote']} words")
 
     # -- host set-up: the panel, its .bed fileset, the GPU container -------
     t0 = time.perf_counter()
@@ -492,15 +502,38 @@ def main() -> int:
             ("wide_dgemm_split", "t", 65, dict()),
             ("wide_dgemm_f32", "t", 130, dict(split=False)),
             ("wide_dgemm_bf16", "t", 130, dict(single_bf16=True)),
+            # checked, not timed: a positive B whose sums grow without
+            # cancelling over the longest contraction
+            ("wide_dgemm_split", "n positive", 65, dict()),
+            ("wide_dgemm_f32", "n positive", 130, dict(split=False)),
         ]
         for trans in ("n", "t"):
             zq, cols = wide_orient[trans]
             dec = decode_planar16(zq, torch.float32)[:, :cols]  # library's
             for name, tr, ncol, opts in wide_cases:
-                if tr != trans:
+                if tr.split()[0] != trans:
                     continue
                 b = randn(cols, ncol)
-                tag = f"{trans} ncol={ncol}"
+                tag = f"{tr} ncol={ncol}"
+                rhs = name.rsplit("_", 1)[1]
+                if tr.endswith("positive"):
+                    # held to the float64 product of the instance's parts
+                    # (a positive lo-biased B: the plain f32 product is
+                    # itself off by more than the limit), beside the bf16
+                    # grade
+                    b = lo_biased(b.abs())
+                    d64 = decode_planar16(zq, torch.float64)[:, :cols]
+                    want = d64 @ rhs_values(b, rhs).double()
+                    control = d64 @ rhs_values(b, "bf16").double()
+                    plain = packed_matmul_plain(zq, b, **opts).double()
+                    log(f"check {name} {tag} plain f32 vs float64: rel="
+                        f"{float(((plain - want).abs() / want).max()):.3g}")
+                    del d64, plain
+                    compare(name, tag, packed_matmul(zq, b, **opts).double(),
+                            want, control, scale=want)
+                    del want, control
+                    torch.cuda.empty_cache()
+                    continue
                 got = packed_matmul(zq, b, **opts)
                 want = packed_matmul_plain(zq, b, **opts)
                 control = packed_matmul_plain(
@@ -512,16 +545,21 @@ def main() -> int:
                 compare(name, tag, got, want, control,
                         scale=packed_matmul_plain(zq, b.abs(), **opts))
                 del got, want, control
-                rhs = name.rsplit("_", 1)[1]
-                if rhs == "f32" or rhs == "split":
+                if rhs == "f32":
                     lib_fn = (lambda d=dec, bw=b: d @ bw)
                 else:
+                    # the bf16 passes the instance runs, in one bf16 call:
+                    # [hi || lo] (2n columns) for the split grade
                     dbf = dec.to(torch.bfloat16)
                     bw = b.to(torch.bfloat16)
-                    if rhs == "hilo":
+                    if rhs in ("hilo", "split"):
                         lo = (b - bw.to(torch.float32)).to(torch.bfloat16)
                         bw = torch.cat([bw, lo], dim=1)
                     lib_fn = (lambda d=dbf, bw=bw: d @ bw)
+                if rhs in ("hilo", "split"):
+                    log(f"time {name} {tag}: f32 library (torch.matmul of "
+                        f"the decoded panel by B) "
+                        f"{event_ms(lambda: dec @ b, 3):.4f} ms")
                 t = timings(name, tag, lambda: packed_matmul(zq, b, **opts),
                             lambda: packed_matmul_plain(zq, b, **opts),
                             lib_fn, zq.shape[0] * cols * ncol,
@@ -530,9 +568,30 @@ def main() -> int:
                             else 10)
                 if "ms" not in results[name]:
                     record(name, 0.0, t)
-                lib_fn = None
+                lib_fn = dbf = None
             del dec
             torch.cuda.empty_cache()
+
+        # the wide kernel's device time by kernel: B pre-pass, mma kernel,
+        # split reduction (torch.profiler; empty where it sees no device)
+        for rhs, ncol, opts in (("split", 65, dict()),
+                                ("bf16", 130, dict(single_bf16=True)),
+                                ("f32", 130, dict(split=False))):
+            b = randn(N_SNPS, ncol)
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    packed_matmul(gm.zq_n, b, **opts)
+                torch.cuda.synchronize()
+            by_kernel = collections.Counter()
+            for ev in prof.key_averages():
+                if ev.device_time_total > 0:
+                    key = next((k for k in ("wide_parts", "wide_mma",
+                                            "reduce_splits") if k in ev.key),
+                               ev.key[:40])
+                    by_kernel[key] += ev.device_time_total / 5 / 1e3
+            log(f"time wide_dgemm_{rhs} n ncol={ncol} by kernel (ms): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items()))
 
         def exact(name, label, got, want):
             equal = bool(torch.equal(got, want))

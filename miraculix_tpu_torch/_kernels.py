@@ -38,7 +38,8 @@ LAUNCHES = {"tall_dgemm": 0, "tall_dgemm_cv": 0, "tall_dgemm_bf16": 0,
             "crossprod_rect": 0, "crossprod_tri": 0, "crossprod_weighted": 0,
             "matmul_int8": 0}
 TALL_PASSES = {"bf16": 1, "split": 2, "f32": 3}  # bf16 parts of B per mode
-WIDE_RHS = {"split": 0, "f32": 0, "bf16": 1, "hilo": 2}
+# bf16 parts of B per wide instance: "split" and "hilo" are one instance
+WIDE_PASSES = {"bf16": 1, "split": 2, "hilo": 2, "f32": 3}
 
 # (mode, n) -> tall launches since the last reset_launch_counts()
 TALL_WIDTHS: collections.Counter = collections.Counter()
@@ -123,10 +124,14 @@ def _load():
             lib.mx_tall_dgemm.argtypes = [vp, i32, vp, i64, i32, vp, vp, vp,
                                           vp, vp, vp, i32, i32, vp]
             lib.mx_tall_dgemm.restype = i32
-            lib.mx_wide_chunks.argtypes = [i32]
-            lib.mx_wide_chunks.restype = i32
+            lib.mx_wide_tiles.argtypes = [i32, i32, ctypes.POINTER(i32)]
+            lib.mx_wide_tiles.restype = i32
+            lib.mx_wide_info.argtypes = [i32, i32, ctypes.POINTER(i32)]
+            lib.mx_wide_info.restype = i32
+            lib.mx_wide_parts_bytes.argtypes = [i32, i32, i32]
+            lib.mx_wide_parts_bytes.restype = i64
             lib.mx_wide_dgemm.argtypes = [vp, i32, i32, vp, i64, i32, i32, vp,
-                                          vp, i32, vp]
+                                          i32, vp, vp, vp]
             lib.mx_wide_dgemm.restype = i32
             lib.mx_crossprod_tile.argtypes = []
             lib.mx_crossprod_tile.restype = i32
@@ -170,7 +175,8 @@ def _raise_if(err: int, what: str) -> None:
 # the most contraction rows one tall split sums: the kernel's f32 total
 # over all 65,536 SNPs of the 'n' shape drifted past 1e-5 of max |plain|
 TALL_SPLIT_ROWS = 8192
-WIDE_BLOCKS_PER_SM = 8   # launched wide blocks per SM the split aims at
+WIDE_SPLIT_WORDS = 64    # the wide kernel's splits keep at least this many
+WIDE_FILL = 0.9          # ... and split until the last wave is this full
 INT8_SPLIT_WORDS = 128   # B10's splits keep at least this many packed words
 INT8_INSTANCES = ("narrow", "wide")   # csrc/matmul_int8.cu's two instances
 
@@ -192,14 +198,6 @@ def tall_splits(kwi: int, contract: int, n: int, passes: int,
     want = max(resident * _sms(device) // lib.mx_tall_tiles(kwi, n, passes),
                -(-contract // TALL_SPLIT_ROWS))
     return max(1, min(want, contract // 256, 65535))
-
-
-def wide_splits(rows: int, kw: int, n: int, device) -> int:
-    """Contraction splits that launch about WIDE_BLOCKS_PER_SM blocks per SM,
-    each split keeping at least 64 packed words."""
-    blocks = -(-rows // 128) * _load().mx_wide_chunks(n)
-    want = -(-WIDE_BLOCKS_PER_SM * _sms(device) // blocks)
-    return max(1, min(want, kw // 64, 65535))
 
 
 def tall_dgemm(zq: torch.Tensor, b: torch.Tensor, cv=None, mode="split"):
@@ -250,32 +248,124 @@ def tall_dgemm(zq: torch.Tensor, b: torch.Tensor, cv=None, mode="split"):
     return ct, v
 
 
-def wide_dgemm(zq: torch.Tensor, b: torch.Tensor, rhs: str) -> torch.Tensor:
-    """B3/B4/B5/B11: decode(zq) @ B -> f32 [rows, n].  ``zq`` int32
+def _wave_fill(rows: int, kw: int, n: int, info: dict, sms: int):
+    """(words a split for s splits, share of the last wave's resident
+    blocks that s splits fill) for a kernel of ``info``'s geometry (rows and
+    columns a block, words a stage, blocks per SM); splits hold whole
+    stages."""
+    stage = info["words"]
+    tiles = -(-rows // info["rows"]) * -(-n // info["cols"])
+    resident = info["blocks_per_sm"] * sms
+
+    def words(s):   # ceil(kw / s), rounded up to whole stages
+        per = -(-kw // s)
+        return -(-per // stage) * stage
+
+    def fill(s):
+        blocks = tiles * -(-kw // words(s))
+        return blocks / (-(-blocks // resident) * resident)
+
+    return words, fill, tiles, resident
+
+
+def wide_tiles(n: int, passes: int) -> tuple:
+    """(column chunks, n8 tiles a chunk) of the wide kernel for an n-column
+    RHS in ``passes`` bf16 parts."""
+    vals = (ctypes.c_int * 3)()
+    _raise_if(_load().mx_wide_tiles(n, passes, vals), "wide_tiles")
+    return vals[0], vals[1]
+
+
+_wide_info: dict = {}
+_wide_splits: dict = {}   # (shape, passes, device) -> split words
+
+
+def wide_info() -> dict:
+    """Of each instance of ``csrc/wide_dgemm.cu`` on the current device,
+    keyed (parts, n8 tiles a chunk): registers and local (spill) bytes a
+    thread, dynamic shared memory a block, resident blocks per SM, and its
+    geometry (rows a block, columns a chunk, words a stage, threads a
+    block, words a promotion, stages), as the CUDA runtime and the library
+    report them."""
+    key = torch.cuda.current_device()
+    if key not in _wide_info:
+        lib, info = _load(), {}
+        for passes in sorted(set(WIDE_PASSES.values())):
+            widest = (ctypes.c_int * 3)()
+            _raise_if(lib.mx_wide_tiles(1, passes, widest), "wide_tiles")
+            for nt in range(1, widest[2] + 1):
+                vals = (ctypes.c_int * 10)()
+                _raise_if(lib.mx_wide_info(passes, nt, vals), "wide_info")
+                info[(passes, nt)] = dict(zip(
+                    ("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm", "rows", "cols", "words", "threads",
+                     "promote", "stages"), vals))
+                if vals[3] < 1:
+                    raise RuntimeError(f"wide_dgemm: the instance of {passes} "
+                                       f"parts x {nt} tiles fits no block on "
+                                       "an SM")
+        _wide_info[key] = info
+    return _wide_info[key]
+
+
+def wide_split_words(rows: int, kw: int, n: int, info: dict,
+                     sms: int) -> int:
+    """Packed words a contraction split of the wide kernel sums, a whole
+    number of the instance's stages (``info``: one instance of
+    :func:`wide_info`): the fewest splits whose last wave of resident
+    blocks is at least WIDE_FILL full (else the fullest), each split keeping
+    at least WIDE_SPLIT_WORDS words."""
+    words, fill, _, _ = _wave_fill(rows, kw, n, info, sms)
+    most = max(1, min(kw // WIDE_SPLIT_WORDS, 65535))
+    best = 1
+    for s in range(1, most + 1):
+        if fill(s) >= WIDE_FILL:
+            return words(s)
+        if fill(s) > fill(best):
+            best = s
+    return words(best)
+
+
+def wide_dgemm(zq: torch.Tensor, b: torch.Tensor, rhs: str,
+               split_words: int | None = None) -> torch.Tensor:
+    """B3/B4/B5/B11: decode(zq) @ B' -> f32 [rows, n].  ``zq`` int32
     [rows, kw], ``b`` f32 [cols, n] with cols <= 16*kw (rows past ``cols``
-    count as zero).  ``rhs``: "split" or "f32" (B as given), "bf16" (bf16(B)),
-    "hilo" (bf16 hi + bf16 lo of B)."""
+    count as zero).  ``rhs``: "bf16" (B' = bf16 hi), "split" or "hilo" (hi +
+    lo), "f32" (hi + mid + lo = B): one bf16 tensor-core pass per part.
+    ``split_words``: words a contraction split (a multiple of the instance's
+    stage; default :func:`wide_split_words`).  The bf16 parts and the split
+    partials go through scratch allocated here."""
     lib = _load()
     _check(zq, "zq", torch.int32, 2)
     _check(b, "b", torch.float32, 2)
     rows, kw = zq.shape
     cols, n = b.shape
-    if rhs not in WIDE_RHS:
+    if rhs not in WIDE_PASSES:
         raise ValueError(f"rhs must be split/f32/bf16/hilo, got {rhs!r}")
     if cols > 16 * kw or n < 1 or b.device != zq.device:
         raise ValueError(f"wide_dgemm: b {tuple(b.shape)} does not fit zq "
                          f"{tuple(zq.shape)}")
     dev = zq.device
-    splits = wide_splits(rows, kw, n, dev)
+    passes = WIDE_PASSES[rhs]
+    if split_words is None:
+        key = (rows, kw, n, passes, dev)
+        if key not in _wide_splits:
+            _wide_splits[key] = wide_split_words(
+                rows, kw, n, wide_info()[(passes, wide_tiles(n, passes)[1])],
+                _sms(dev))
+        split_words = _wide_splits[key]
+    splits = -(-kw // split_words)
     out = torch.empty((rows, n), dtype=torch.float32, device=dev)
     work = torch.empty((splits, rows, n), dtype=torch.float32, device=dev) \
         if splits > 1 else None
+    parts = torch.empty(lib.mx_wide_parts_bytes(kw, n, passes),
+                        dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     name = f"wide_dgemm_{rhs}"
     LAUNCHES[name] += 1
-    _raise_if(lib.mx_wide_dgemm(_ptr(zq), rows, kw, _ptr(b), cols, n,
-                                WIDE_RHS[rhs], _ptr(out), _ptr(work), splits,
-                                ctypes.c_void_p(stream)), name)
+    _raise_if(lib.mx_wide_dgemm(_ptr(zq), rows, kw, _ptr(b), cols, n, passes,
+                                _ptr(parts), split_words, _ptr(out),
+                                _ptr(work), ctypes.c_void_p(stream)), name)
     return out
 
 
@@ -425,23 +515,11 @@ def int8_split_words(rows: int, kw: int, n: int, info: dict, sms: int,
     of resident blocks, the contraction splits: of the split counts from
     the least that reaches ``waves`` waves to twice that, the one whose
     last wave is fullest, each split keeping >= INT8_SPLIT_WORDS words."""
-    stage = info["words"]
-
-    def words(s):   # ceil(kw / s), rounded up to whole stages
-        per = -(-kw // s)
-        return -(-per // stage) * stage
-
-    tiles = -(-rows // info["rows"]) * -(-n // info["cols"])
-    resident = info["blocks_per_sm"] * sms
+    words, fill, tiles, resident = _wave_fill(rows, kw, n, info, sms)
     least = -(-waves * resident // tiles)
     most = max(1, min(kw // INT8_SPLIT_WORDS, 65535))
     if least <= 1 or most == 1:
         return words(1)
-
-    def fill(s):
-        blocks = tiles * -(-kw // words(s))
-        return blocks / (-(-blocks // resident) * resident)
-
     best = max(range(least, 2 * least + 1), key=lambda s: (fill(s), -s))
     return words(min(best, most))
 

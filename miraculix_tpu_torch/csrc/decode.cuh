@@ -1,6 +1,6 @@
-// Genotype decode (to f32, to bf16 mma fragments, or to int8 quads), RHS
-// rounding, the split reduction and the upper tile-pair walk shared by the
-// packed-product kernels.
+// Genotype decode (to f32, to bf16 mma fragments, or to int8 quads), the
+// split reduction and the upper tile-pair walk shared by the packed-product
+// kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,28 +60,6 @@ __device__ __forceinline__ void a_fragment(uint32_t w0, uint32_t w1,
 __device__ __forceinline__ uint4 int8_quads(uint32_t w) {
   return make_uint4(w & 0x03030303u, (w >> 2) & 0x03030303u,
                     (w >> 4) & 0x03030303u, (w >> 6) & 0x03030303u);
-}
-
-// x rounded once to bf16, to nearest even, and widened back
-__device__ __forceinline__ float bf16_rne(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// The RHS value each product uses, by precision:
-//   RHS_F32  -- B as given (the fast and f32 tiers: f32 FMA, exact products);
-//   RHS_BF16 -- bf16(B), rounded to nearest even (the bf16 tier);
-//   RHS_HILO -- hi + lo with hi = bf16(B), lo = bf16(B - hi) (the split
-//               tier's two bf16 halves; their sum has at most 17
-//               significant bits, so it is exact in f32 and one FMA does
-//               the work of the two bf16 passes).
-enum Rhs { RHS_F32 = 0, RHS_BF16 = 1, RHS_HILO = 2 };
-
-template <int RHS>
-__device__ __forceinline__ float rhs_value(float b) {
-  if (RHS == RHS_F32) return b;
-  const float hi = bf16_rne(b);
-  if (RHS == RHS_BF16) return hi;
-  return hi + bf16_rne(b - hi);
 }
 
 namespace {  // one copy per translation unit: both kernels' sources use it

@@ -11,7 +11,8 @@ chooses: :func:`packed_matmul_tall` (``csrc/tall_dgemm.cu``, bf16 tensor
 cores, one pass per bf16 part of B: hi + lo at the fast tier as the
 reference's split, hi at bf16, hi + mid + lo at f32) for RHS of up to 64
 columns at the fast tier and 128 at the bf16/f32 tiers, and
-:func:`packed_matmul` (``csrc/wide_dgemm.cu``) for wider RHS.  Centering is
+:func:`packed_matmul` (``csrc/wide_dgemm.cu``, the same bf16 passes) for
+wider RHS.  Centering is
 a rank-1 epilogue whose contraction-side reduction (c^T B or 1^T B) the
 tall kernel fuses at the fast tier.  The f64 tier splits B into int8 digits
 and runs them through the exact digit kernel (``csrc/matmul_int8.cu``) in
@@ -47,10 +48,11 @@ def tall_rhs_parts(b: torch.Tensor, mode: str) -> list:
 
 
 def rhs_values(b: torch.Tensor, rhs: str) -> torch.Tensor:
-    """The f32 RHS values a kernel instance multiplies by: B itself
-    ("split", "f32"), bf16(B) rounded to nearest even ("bf16"), or the sum
-    of B's bf16 hi and lo halves ("hilo"; exact in f32)."""
-    if rhs in ("split", "f32"):
+    """The f32 RHS values a kernel instance multiplies by: B itself ("f32":
+    its three bf16 parts sum to B), bf16(B) rounded to nearest even
+    ("bf16"), or the sum of B's bf16 hi and lo halves ("split", "hilo": the
+    reference's two passes; exact in f32)."""
+    if rhs == "f32":
         return b
     hi = b.to(torch.bfloat16).to(torch.float32)
     if rhs == "bf16":
@@ -102,7 +104,8 @@ def wide_rhs(n: int, split: bool, single_bf16: bool) -> str:
     """The wide kernel instance for an n-column RHS, as the reference picks
     its kernel: ``single_bf16`` -> "bf16"; ``split`` -> "split" above 64
     columns (its in-kernel split), "hilo" at 64 or fewer (its host hi||lo
-    concatenation); otherwise "f32".  (The reference also cuts RHS wider
+    concatenation): one two-pass instance under two launch counters;
+    otherwise "f32".  (The reference also cuts RHS wider
     than 512 columns into chunks for its VMEM budget; the kernel takes any
     width in one launch.)"""
     if single_bf16:
@@ -130,7 +133,9 @@ def packed_matmul(zq: torch.Tensor, b, *, split: bool = True,
     ``zq``: int32 planar16 [rows_pad, kw]; ``b``: [cols, n] with
     cols <= 16*kw (rows past ``cols`` count as zero).  No centering.
     ``single_bf16`` overrides ``split``: B rounded once to bf16 (~2e-3
-    relative, the speed tier); ``split=False`` multiplies by B in f32.
+    relative, the speed tier); ``split`` (the fast tier) multiplies by B's
+    bf16 hi + lo, the reference's two passes; ``split=False`` by B (three
+    bf16 parts, f32 grade).
     ``per_plane`` selects a TPU scheduling variant of the same function and
     changes nothing here.  CUDA tensors launch the wide kernel; CPU tensors
     take the plain version.
@@ -311,7 +316,7 @@ def dgemm(g: GenoMatrix, b, trans: str = "n", center=True,
     by sqrt(2 sum p(1-p)) over SNP frequencies for 't' and over
     per-individual pseudo-frequencies for 'n'.  ``ignore_missings=False``
     makes recorded missing entries contribute 0 to the centered product.
-    ``precision``: "fast" (f32 products), "bf16" (B rounded once to bf16,
+    ``precision``: "fast" (B's bf16 hi + lo), "bf16" (B rounded once to bf16,
     ~2e-3 relative), "f32", or "f64" (exact digit products, ~1e-16
     relative).  Returns f32 [rows, n] on the panel's device; at "f64" the
     caller's B and user center are taken in float64, the whole epilogue

@@ -248,6 +248,119 @@ def test_wide_dgemm_matches_plain(dev, rows, kw, cols, n, rhs):
     assert float((got - want).abs().max()) <= 1e-5 * float(scale.max())
 
 
+def _wide_check(got, zq, b, rhs, rtol=1e-5):
+    """``got`` against the float64 product of the instance's parts: each
+    output within ``rtol`` of its sum of |terms|."""
+    d = decode_planar16(zq, torch.float64)[:, :b.shape[0]]
+    bh = rhs_values(b, rhs).double()
+    want, scale = d @ bh, d @ bh.abs()
+    assert got.shape == want.shape
+    err = ((got.double() - want).abs() / scale.clamp_min(1e-300)).max()
+    assert float(err) <= rtol, float(err)
+
+
+@pytest.mark.parametrize("rows,kw", [(255, 15), (256, 32), (257, 33),
+                                     (511, 31), (130, 48), (16, 1)])
+@pytest.mark.parametrize("n", [1, 8, 9, 24, 25, 32, 33, 64, 65, 130])
+@pytest.mark.parametrize("rhs", ["bf16", "split", "f32"])
+def test_wide_dgemm_tile_stage_and_chunk_edges(dev, rows, kw, n, rhs):
+    """Rows at and off the 128- and 256-row blocks, words at and off the
+    16- and 32-word stages, widths at the chunk edges (64 columns for one
+    pass, 32 for two, 24 for three) and at the n8 tile edge; B's rows end
+    inside a word's planes.  Codes 0..3 and B over 2^-30..2^30 with
+    zeros."""
+    rng = np.random.default_rng(rows * 1000 + kw * 10 + n)
+    zq = _all_codes(rng, rows, kw).to(dev)
+    b = _wide_range(rng, max(1, 16 * kw - 7), n, dev)
+    _wide_check(_kernels.wide_dgemm(zq, b, rhs), zq, b, rhs)
+
+
+@pytest.mark.parametrize("rhs", ["split", "f32"])
+def test_wide_dgemm_positive_rhs_longest_contraction(dev, rhs):
+    """A positive, lo-biased B at the smoke's longest contraction (4,096
+    words, 65,536 terms): its sums grow without cancelling, so tensor-core
+    accumulators run over a whole split would truncate them.  Each output
+    within 4e-6 of its float64 product of the instance's parts, while the
+    bf16 grade stands outside that limit; f32 also stands 4x closer than
+    its first two parts (hi + lo) alone, so its third pass runs."""
+    rng = np.random.default_rng(len(rhs))
+    zq = _words(rng, 300, 4096).to(dev)
+    b = _lo_biased(torch.as_tensor(np.abs(rng.standard_normal((65536, 33))),
+                                   dtype=torch.float32, device=dev))
+    got = _kernels.wide_dgemm(zq, b, rhs)
+    _wide_check(got, zq, b, rhs, rtol=4e-6)
+    d = decode_planar16(zq, torch.float64)
+    want = d @ rhs_values(b, rhs).double()
+    one = d @ rhs_values(b, "bf16").double()
+    assert float(((one - want).abs() / want).max()) > 4e-6
+    if rhs == "f32":
+        two = d @ rhs_values(b, "hilo").double()
+        assert float((got.double() - want).abs().max()) \
+            <= 0.25 * float((two - want).abs().max())
+
+
+def _wide_stage(rhs, n):
+    """Words a stage of the instance that ``rhs`` at n columns launches."""
+    passes = _kernels.WIDE_PASSES[rhs]
+    return _kernels.wide_info()[(passes, _kernels.wide_tiles(n, passes)[1])
+                                ]["words"]
+
+
+@pytest.mark.parametrize("stages", [1, 2, 3, 64, None])
+@pytest.mark.parametrize("rhs", ["bf16", "split", "f32"])
+def test_wide_dgemm_every_split_count(dev, stages, rhs):
+    """The contraction split in splits of one, two and three stages (the
+    last split short), in one split, and by the launcher's rule, over 1,021
+    words (the last stage short)."""
+    rng = np.random.default_rng(stages or 7)
+    zq = _words(rng, 700, 1021).to(dev)
+    b = torch.as_tensor(rng.standard_normal((16 * 1021, 70)),
+                        dtype=torch.float32, device=dev)
+    per = None if stages is None else stages * _wide_stage(rhs, 70)
+    got = _kernels.wide_dgemm(zq, b, rhs, split_words=per)
+    _wide_check(got, zq, b, rhs)
+
+
+def test_wide_dgemm_split_counts_agree_and_repeat(dev):
+    """No atomics: one split count gives the same bits every run."""
+    rng = np.random.default_rng(3)
+    zq = _words(rng, 1000, 512).to(dev)
+    b = torch.as_tensor(rng.standard_normal((8192, 130)),
+                        dtype=torch.float32, device=dev)
+    stage = _wide_stage("split", 130)
+    for per in (stage, 4 * stage, 512):
+        first = _kernels.wide_dgemm(zq, b, "split", split_words=per)
+        assert torch.equal(first, _kernels.wide_dgemm(zq, b, "split",
+                                                      split_words=per))
+
+
+def _wide_instances():
+    """(parts, tiles) of every instance, from the source's Shape lines."""
+    src = (Path(_kernels.__file__).parent / "csrc" /
+           "wide_dgemm.cu").read_text()
+    most = [int(re.search(rf"using {name} = Shape<\d+, (\d+),", src)
+                .group(1)) for name in ("One", "Two", "Three")]
+    return [(p, nt) for p in (1, 2, 3) for nt in range(1, most[p - 1] + 1)]
+
+
+@pytest.mark.parametrize("passes,nt", _wide_instances())
+def test_wide_dgemm_instances_do_not_spill(dev, passes, nt):
+    """Every instance the library holds compiles without spills, fits a
+    block on an SM, and computes its product (one chunk of nt tiles)."""
+    info = _kernels.wide_info()
+    assert set(info) >= {(passes, nt)}
+    i = info[(passes, nt)]
+    assert i["local_bytes"] == 0 and i["blocks_per_sm"] >= 1, i
+    rhs = {1: "bf16", 2: "split", 3: "f32"}[passes]
+    n = 8 * nt - 3 if nt > 1 else 5
+    assert _kernels.wide_tiles(n, passes) == (1, nt)
+    rng = np.random.default_rng(passes * 10 + nt)
+    zq = _words(rng, 300, 77).to(dev)
+    b = torch.as_tensor(rng.standard_normal((16 * 77, n)),
+                        dtype=torch.float32, device=dev)
+    _wide_check(_kernels.wide_dgemm(zq, b, rhs), zq, b, rhs)
+
+
 @pytest.mark.parametrize("rows,kw", [(64, 16), (65, 17), (200, 33),
                                      (513, 128), (1, 1)])
 def test_crossprod_matches_plain(dev, rows, kw):

@@ -6,7 +6,8 @@ run them; the port runs the plain versions of its kernels.  Tolerances,
 relative to max |reference| (or to the sum of |terms| for raw products):
 
 - fast and f32 tiers: 1e-4 against the reference (its fast tier is a bf16
-  hi/lo split), 1e-5 against the f64 oracle (the port multiplies in f32);
+  hi/lo split), 1e-5 against the f64 oracle (the port's fast tier
+  multiplies by the same bf16 hi + lo, its f32 tier by B);
 - bf16 tier: 1e-5 against the reference's bf16 tier -- both round B once
   to bf16 and sum in f32, so they agree far inside their shared ~2e-3
   error against the oracle;
