@@ -22,10 +22,13 @@ Builds the CUDA kernels of ``miraculix_tpu_torch/csrc`` and
    at an LD row block and a ``grm_blocked`` tile (random and all-2
    genotypes) and the masked-grid crossproduct on the whole square (exactly
    equal, the latter to K3 too), and the weighted crossproduct at the GCTA
-   GRM's weights (error <= 4e-6 of each output).  Each dgemm and weighted
-   check also reads a control, the plain product at the other grade
-   (bf16(B) against B, bf16(w) against w), which must exceed the limit
-   under the same metric.  The exact digit kernel of the f64 tier is held to its
+   GRM's weights (error <= 4e-6 of each output; its time by kernel, and a
+   bf16 library call of its three digit passes beside the f32 one).  Each
+   dgemm and weighted check also reads a control, the plain product at the
+   other grade (bf16(B) against B, bf16(w) against w; for the weighted one
+   also the kernel on w's first digit alone and on its first two, i.e. on
+   weights whose split has only those), which must exceed the limit under
+   the same metric.  The exact digit kernel of the f64 tier is held to its
    plain version (exactly equal) at the products the f64 paths launch
    (8 and 96 digit columns, 'n' and 't'), with digits over [-64, 64], in
    both its instances, and one ``packed_matmul_exact`` product at 12
@@ -71,10 +74,10 @@ Builds the CUDA kernels of ``miraculix_tpu_torch/csrc`` and
    for the f64 tier.
 
 Earlier lines report the compiler's registers and spills (and, for the
-integer and wide kernels, their shared memory and resident blocks an SM), per-phase
-seconds, errors, kernel rates beside their bounds, launch counts (the tall
-kernel's also by mode and width over the main paths, each of which phase 1
-must have checked), the card's
+integer, wide and weighted kernels, their shared memory and resident blocks
+an SM), per-phase seconds, errors, kernel rates beside their bounds, launch
+counts (the tall kernel's also by mode and width over the main paths, each
+of which phase 1 must have checked), the card's
 name and power limit, and one JSON object of kernel results; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero and
 prints no result line.
@@ -293,6 +296,13 @@ def main() -> int:
             f"{info['blocks_per_sm']} blocks an SM; {info['rows']} rows x "
             f"{info['cols']} digit columns a block, {info['words']} words a "
             f"stage, {info['threads']} threads")
+    info = _kernels.weighted_info()
+    log(f"  crossprod_weighted: {info['registers']} registers, "
+        f"{info['local_bytes']} local (spill) bytes a thread, "
+        f"{info['smem_bytes']} bytes of dynamic shared memory, "
+        f"{info['blocks_per_sm']} blocks an SM; {info['tile']} x "
+        f"{info['tile']} tiles of {info['threads']} threads, "
+        f"{info['words']} words a stage x {info['stages']}")
     for (passes, nt), info in _kernels.wide_info().items():
         log(f"  wide_dgemm {passes} parts x {nt} tiles: {info['registers']} "
             f"registers, {info['local_bytes']} local (spill) bytes a thread, "
@@ -669,24 +679,62 @@ def main() -> int:
         pq2 = 2.0 * f64 * (1.0 - f64)
         wy = torch.where(pq2 > 1e-12, 1.0 / (pq2 * float((pq2 > 1e-12).sum())),
                          torch.zeros_like(pq2)).float()
+        # w's digits, split as the kernel splits them: h1 = w & 0xFFFF0000,
+        # h2 = (w - h1) & 0xFFFF0000, h3 the rest.  (The controls: the plain
+        # product with w rounded once to bf16, and the kernel on h1 and on
+        # h1 + h2, weights whose split is (h1, 0, 0) and (h1, h2, 0).)
+        w16 = torch.cat([wy, torch.zeros(16 * kw - N_SNPS, device=dev)])
+        h1 = (w16.view(torch.int32) & -65536).view(torch.float32)
+        r1 = w16 - h1
+        h2 = (r1.view(torch.int32) & -65536).view(torch.float32)
         got = packed_crossprod_weighted(zn, wy)
         want = packed_crossprod_weighted_plain(zn, wy)
-        control = packed_crossprod_weighted_plain(
-            zn, wy.to(torch.bfloat16).to(torch.float32))
+        control = [packed_crossprod_weighted_plain(
+            zn, wy.to(torch.bfloat16).to(torch.float32))] + [
+            packed_crossprod_weighted(zn, h) for h in (h1, h1 + h2)]
         compare("crossprod_weighted", f"rows={rows}", got, want, control,
                 scale=want)
         del got, want, control
         torch.cuda.empty_cache()
-        dec = decode_planar16(zn, torch.float32)
-        dw = dec * torch.cat([wy, torch.zeros(16 * kw - N_SNPS, device=dev)])
+        # the library yardstick: the same three bf16 passes in one bf16
+        # torch.matmul on the full square, [h1 d | h2 d | h3 d] (16,384 x
+        # 196,608) by [d | d | d]^T (z h is exact in bf16)
+        dec = decode_planar16(zn, torch.bfloat16)
+        lhs = torch.cat([dec * h.to(torch.bfloat16) for h in (h1, h2,
+                                                               r1 - h2)], 1)
+        rhs = torch.cat([dec, dec, dec], 1)
+        del dec
         record("crossprod_weighted", 0.0, timings(
             "crossprod_weighted", f"rows={rows}",
             lambda: packed_crossprod_weighted(zn, wy),
             lambda: packed_crossprod_weighted_plain(zn, wy),
-            lambda: dw @ dec.T, tri_macs,
+            lambda: lhs @ rhs.T, tri_macs,
             4 * (zn.numel() + 16 * kw + rows * rows), 2))
+        del lhs, rhs
+        torch.cuda.empty_cache()
+        dec = decode_planar16(zn, torch.float32)
+        dw = dec * w16
+        log(f"time crossprod_weighted rows={rows}: f32 library (torch.matmul "
+            f"of the decoded panel times w by its transpose) "
+            f"{event_ms(lambda: dw @ dec.T, 2):.4f} ms")
         del dec, dw
         torch.cuda.empty_cache()
+        # B9's device time by kernel: digit pre-pass, mma kernel
+        # (torch.profiler; empty where it sees no device)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                packed_crossprod_weighted(zn, wy)
+            torch.cuda.synchronize()
+        by_kernel = collections.Counter()
+        for ev in prof.key_averages():
+            if ev.device_time_total > 0:
+                key = next((k for k in ("weighted_digits", "weighted_mma")
+                            if k in ev.key), ev.key[:40])
+                by_kernel[key] += ev.device_time_total / 3 / 1e3
+        log(f"time crossprod_weighted rows={rows} by kernel (ms): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items()))
+        del w16, h1, r1, h2
 
         # B10 at the f64 paths' products: the 't' and 'n' products of
         # grm_matvec_f64 at 12 columns (8 digits each: 96 digit columns)

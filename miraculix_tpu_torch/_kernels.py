@@ -142,8 +142,12 @@ def _load():
             lib.mx_crossprod_rect.argtypes = [vp, i32, vp, i32, i32, i32, vp,
                                               vp]
             lib.mx_crossprod_rect.restype = i32
+            lib.mx_weighted_info.argtypes = [ctypes.POINTER(i32)]
+            lib.mx_weighted_info.restype = i32
+            lib.mx_weighted_digits_bytes.argtypes = [i32]
+            lib.mx_weighted_digits_bytes.restype = i64
             lib.mx_crossprod_weighted.argtypes = [vp, i32, i32, vp, i32, vp,
-                                                  vp]
+                                                  vp, vp]
             lib.mx_crossprod_weighted.restype = i32
             lib.mx_matmul_int8_info.argtypes = [i32, ctypes.POINTER(i32)]
             lib.mx_matmul_int8_info.restype = i32
@@ -430,11 +434,35 @@ def crossprod_tri(zq: torch.Tensor) -> torch.Tensor:
     return _rect(zq, zq, True, "crossprod_tri")
 
 
+_weighted_info: dict = {}
+
+
+def weighted_info() -> dict:
+    """Of ``csrc/crossprod_weighted.cu``'s kernel on the current device:
+    registers and local (spill) bytes a thread, dynamic shared memory a
+    block, resident blocks per SM, and its geometry (output tile edge,
+    threads a block, words a stage, stages), as the CUDA runtime and the
+    library report them."""
+    key = torch.cuda.current_device()
+    if key not in _weighted_info:
+        vals = (ctypes.c_int * 8)()
+        _raise_if(_load().mx_weighted_info(vals), "weighted_info")
+        info = dict(zip(("registers", "local_bytes", "smem_bytes",
+                         "blocks_per_sm", "tile", "threads", "words",
+                         "stages"), vals))
+        if info["blocks_per_sm"] < 1:
+            raise RuntimeError("crossprod_weighted: the kernel fits no block "
+                               "on an SM")
+        _weighted_info[key] = info
+    return _weighted_info[key]
+
+
 def crossprod_weighted(zq: torch.Tensor, w: torch.Tensor,
                        triangle: bool = True) -> torch.Tensor:
     """B9: f32 decode(zq) diag(w) decode(zq)^T [rows, rows]; ``w`` f32
     [16, kw] plane-major.  ``triangle`` walks the upper tile pairs and
-    mirrors; otherwise every tile is computed."""
+    mirrors; otherwise every tile is computed.  w's three masked bf16
+    digits go through scratch allocated here."""
     lib = _load()
     _check(zq, "zq", torch.int32, 2)
     _check(w, "w", torch.float32, 2)
@@ -443,11 +471,13 @@ def crossprod_weighted(zq: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"crossprod_weighted: w {tuple(w.shape)} must be "
                          f"[16, {kw}] on {zq.device}")
     out = torch.empty((rows, rows), dtype=torch.float32, device=zq.device)
+    dg = torch.empty(lib.mx_weighted_digits_bytes(kw), dtype=torch.uint8,
+                     device=zq.device)
     stream = torch.cuda.current_stream(zq.device).cuda_stream
     LAUNCHES["crossprod_weighted"] += 1
     _raise_if(lib.mx_crossprod_weighted(_ptr(zq), rows, kw, _ptr(w),
-                                        int(not triangle), _ptr(out),
-                                        ctypes.c_void_p(stream)),
+                                        int(not triangle), _ptr(dg),
+                                        _ptr(out), ctypes.c_void_p(stream)),
               "crossprod_weighted")
     return out
 

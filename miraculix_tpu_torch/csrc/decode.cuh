@@ -1,4 +1,4 @@
-// Genotype decode (to f32, to bf16 mma fragments, or to int8 quads), the
+// Genotype decode (to bf16 mma fragments or to int8 quads), the
 // split reduction and the upper tile-pair walk shared by the packed-product
 // kernels.
 #pragma once
@@ -15,12 +15,6 @@ __device__ __forceinline__ void upper_pair(long long p, int& bi, int& bj) {
   while ((long long)bj * (bj + 1) / 2 > p) --bj;
   while ((long long)(bj + 1) * (bj + 2) / 2 <= p) ++bj;
   bi = (int)(p - (long long)bj * (bj + 1) / 2);
-}
-
-// (w >> 2m) & 3 as an exact float: 2^23 + g has the bit pattern
-// 0x4B000000 | g, so subtracting 2^23 leaves g (no int->float convert)
-__device__ __forceinline__ float geno(uint32_t w, int m) {
-  return __int_as_float(((w >> (2 * m)) & 3u) | 0x4B000000u) - 8388608.0f;
 }
 
 // The bf16 pair of one plane of two packed words, from ``pair`` = their

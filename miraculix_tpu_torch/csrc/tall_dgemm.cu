@@ -68,6 +68,7 @@
 #include <stdint.h>
 
 #include "decode.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -167,35 +168,6 @@ tall_parts(const float* __restrict__ b, long long contract, int n, int cw,
 // ---------------------------------------------------------------------------
 // Main kernel.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint2 b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
 template <int NT, int P>
 struct Tile {
   static constexpr int WPW = words_per_warp(NT);
@@ -241,8 +213,8 @@ tall_mma(const uint32_t* __restrict__ zq, int kwi, long long contract,
         const long long s = row0 + r;
         const int w = wb + cq * 4;
         const bool ok = s < contract && w < kwi;
-        cp_async16(zd + r * ZS + cq * 4, ok ? zq + s * kwi + w : zq,
-                   ok ? 16 : 0);
+        mx::cp_async16(zd + r * ZS + cq * 4, ok ? zq + s * kwi + w : zq,
+                       ok ? 16 : 0);
       }
     } else {                        // rows not 16-byte aligned: one word
       for (int idx = tid; idx < K_TILE * W_BLK; idx += THREADS) {
@@ -250,13 +222,14 @@ tall_mma(const uint32_t* __restrict__ zq, int kwi, long long contract,
         const long long s = row0 + r;
         const int w = wb + c;
         const bool ok = s < contract && w < kwi;
-        cp_async4(zd + r * ZS + c, ok ? zq + s * kwi + w : zq, ok ? 4 : 0);
+        mx::cp_async4(zd + r * ZS + c, ok ? zq + s * kwi + w : zq,
+                      ok ? 4 : 0);
       }
     }
     uint4* pd = (uint4*)(ps + buf * T::PS_U2);
     const uint4* src = pg + ks0 * P * NT * 16;       // 16 uint4 per tile
     for (int idx = tid; idx < T::PS_U2 / 2; idx += THREADS)
-      cp_async16(pd + idx, src + idx, 16);
+      mx::cp_async16(pd + idx, src + idx, 16);
   };
 
   float acc[WPW][NT][4];
@@ -271,13 +244,13 @@ tall_mma(const uint32_t* __restrict__ zq, int kwi, long long contract,
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (i < nst) load(i, i);
-    cp_async_commit();
+    mx::cp_async_commit();
   }
   for (int i = 0; i < nst; ++i) {
-    cp_async_wait<STAGES - 2>();
+    mx::cp_async_wait<STAGES - 2>();
     __syncthreads();
     if (i + STAGES - 1 < nst) load(i + STAGES - 1, (i + STAGES - 1) % STAGES);
-    cp_async_commit();
+    mx::cp_async_commit();
     const int buf = i % STAGES;
     const uint32_t* zb = zs + buf * T::ZS_WORDS + warp * WPW;
     const uint2* pb = ps + buf * T::PS_U2;
@@ -309,7 +282,7 @@ tall_mma(const uint32_t* __restrict__ zq, int kwi, long long contract,
         for (int p = 0; p < P; ++p) {      // words innermost: independent
           const uint2 bb = pb[((kk * P + p) * NT + u) * 32 + lane];
 #pragma unroll
-          for (int w = 0; w < WPW; ++w) mma_bf16(d[p][w], a[w], bb);
+          for (int w = 0; w < WPW; ++w) mx::mma_bf16(d[p][w], a[w], bb);
         }
 #pragma unroll
         for (int w = 0; w < WPW; ++w)
@@ -323,7 +296,7 @@ tall_mma(const uint32_t* __restrict__ zq, int kwi, long long contract,
       }
     }
   }
-  cp_async_wait<0>();
+  mx::cp_async_wait<0>();
 
   // epilogue: one 8-column tile at a time through shared memory
   // [q][m][word], then rows of W_BLK consecutive words to global memory

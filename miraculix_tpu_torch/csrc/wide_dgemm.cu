@@ -99,7 +99,6 @@ struct Cfg {
   static constexpr int B_U2 = KS * P * NT * 32;        // one B stage
   static constexpr size_t SMEM =
       (size_t)STAGES * (Z_WORDS * sizeof(uint32_t) + B_U2 * sizeof(uint2));
-  static_assert(BM * KS / 4 % THREADS == 0, "whole A copies a thread");
 };
 
 __host__ __device__ constexpr int nt_max(int passes) {
@@ -174,25 +173,6 @@ wide_parts(const float* __restrict__ b, long long cols, int n, int kw,
 // ---------------------------------------------------------------------------
 // Main kernel.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint2 b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-// the same from zero
-__device__ __forceinline__ void mma_bf16_zero(float* c, const uint32_t* a,
-                                              uint2 b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y),
-        "f"(0.f));
-}
-
 // Stage: words [w0, w0 + KS) of rows [row0, row0 + BM) -> zs (row-major,
 // rows of ZS words; zero past `rows` and past kw), and the chunk's B
 // fragments of the same words (pg: those of word w0) -> ps.
@@ -203,47 +183,11 @@ __device__ __forceinline__ void load_stage(const uint32_t* __restrict__ zq,
                                            const uint4* __restrict__ pg,
                                            uint32_t* zs, uint4* ps) {
   using C = Cfg<P, NT>;
-  if (vec) {   // kw % 4 == 0: a 16-byte chunk is all in or all out
-#pragma unroll
-    for (int i = 0; i < C::BM * C::KS / 4 / THREADS; ++i) {
-      const int idx = threadIdx.x + i * THREADS;
-      const int r = idx / (C::KS / 4), q = idx % (C::KS / 4);
-      const bool ok = row0 + r < rows && w0 + 4 * q < kw;
-      mx::cp_async16(zs + r * C::ZS + 4 * q,
-                     ok ? zq + (long long)(row0 + r) * kw + w0 + 4 * q : zq,
-                     ok ? 16 : 0);
-    }
-  } else {
-#pragma unroll 4
-    for (int i = 0; i < C::BM * C::KS / THREADS; ++i) {
-      const int idx = threadIdx.x + i * THREADS;
-      const int r = idx / C::KS, w = idx % C::KS;
-      const bool ok = row0 + r < rows && w0 + w < kw;
-      mx::cp_async4(zs + r * C::ZS + w,
-                    ok ? zq + (long long)(row0 + r) * kw + w0 + w : zq,
-                    ok ? 4 : 0);
-    }
-  }
+  mx::copy_rows<C::BM, C::KS, C::ZS, THREADS>(zq, rows, kw, row0, w0, vec,
+                                              zs);
 #pragma unroll
   for (int idx = threadIdx.x; idx < C::B_U2 / 2; idx += THREADS)
     mx::cp_async16(ps + idx, pg + idx, 16);
-}
-
-// acc += the parts' sums, smallest part first, each add rounded to nearest
-template <int P, int MI, int NT>
-__device__ __forceinline__ void promote(float (&acc)[MI][NT][4],
-                                        float (&d)[P][MI][NT][4]) {
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int u = 0; u < NT; ++u)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float sum = d[P - 1][mi][u][e];
-#pragma unroll
-        for (int p = P - 2; p >= 0; --p) sum += d[p][mi][u][e];
-        acc[mi][u][e] += sum;
-      }
 }
 
 // block (row tile x, split y, chunk z): rows [BM x, BM (x+1)), words
@@ -333,11 +277,13 @@ wide_mma(const uint32_t* __restrict__ zq, int rows, int kw,
             const uint2 bb = ps[((kk * P + p) * NT + u) * 32];
 #pragma unroll
             for (int mi = 0; mi < MI; ++mi) {
-              if (kk % PROMOTE == 0) mma_bf16_zero(d[p][mi][u], a[mi], bb);
-              else mma_bf16(d[p][mi][u], a[mi], bb);
+              if (kk % PROMOTE == 0)
+                mx::mma_bf16_zero(d[p][mi][u], a[mi], bb);
+              else
+                mx::mma_bf16(d[p][mi][u], a[mi], bb);
             }
           }
-        if (kk % PROMOTE == PROMOTE - 1) promote<P, MI, NT>(acc, d);
+        if (kk % PROMOTE == PROMOTE - 1) mx::promote<P, MI, NT>(acc, d);
       }
     }
   }

@@ -129,10 +129,14 @@ def packed_crossprod_weighted_plain(zq: torch.Tensor, w) -> torch.Tensor:
 def packed_crossprod_weighted(zq: torch.Tensor, w,
                               triangle: bool = True) -> torch.Tensor:
     """Per-SNP-weighted crossproduct decode(zq) diag(w) decode(zq)^T -> f32
-    [rows, rows] at f32 grade (exact products, f32 sums of 64 products
-    gathered in f64).  ``w``: [snps] (or up to [16*kw]) weights in natural
-    SNP order; padded SNPs get weight 0.  CUDA tensors launch B9 on the
-    upper tile pairs with its mirror (``triangle=False``: every tile)."""
+    [rows, rows] at f32 grade.  ``w``: [snps] (or up to [16*kw]) weights in
+    natural SNP order; padded SNPs get weight 0.  CUDA tensors launch B9 on
+    the upper tile pairs with its mirror (``triangle=False``: every tile):
+    w is split into three bf16 digits by bit masking, as the reference
+    splits w*z (they sum to w exactly), and each digit is one bf16
+    tensor-core pass whose products z_i * z_j * h_d are exact; each digit's
+    sum runs from zero over one 32-word stage and is added, smallest digit
+    first, to f32 totals."""
     if not zq.is_cuda:
         return packed_crossprod_weighted_plain(zq, w)
     return _kernels.crossprod_weighted(

@@ -494,7 +494,14 @@ def test_crossprod_missing_indicator_packings(dev, rows, kw):
 
 @pytest.mark.parametrize("rows,kw,snps", [(64, 16, 256), (65, 17, 270),
                                           (200, 33, 500), (513, 128, 2048),
-                                          (1, 5, 3)])
+                                          (1, 5, 3),
+                                          # tile edges (64-row tiles)
+                                          (127, 20, 320), (128, 20, 320),
+                                          (129, 20, 319), (255, 9, 144),
+                                          (257, 12, 190),
+                                          # stage edges (32-word stages)
+                                          (100, 31, 496), (100, 33, 528),
+                                          (70, 32, 512), (70, 64, 1000)])
 @pytest.mark.parametrize("triangle", [True, False])
 def test_crossprod_weighted_matches_plain(dev, rows, kw, snps, triangle):
     """B9 against its f64 plain version, each output's error bounded by its
@@ -516,6 +523,119 @@ def test_crossprod_weighted_matches_plain(dev, rows, kw, snps, triangle):
     assert rel(got.double()) <= 4e-6
     if rows > 1:   # one output of a 3-term sum may land on bf16 exactly
         assert rel(control) > 4e-6
+
+
+def _weighted_f64(zq, w):
+    """(decode(zq) diag(w) decode(zq)^T, the same with |w|) in float64: the
+    exact product and each output's sum of |terms|."""
+    kw = zq.shape[1]
+    wd = torch.zeros(16 * kw, dtype=torch.float64, device=zq.device)
+    wd[:w.shape[0]] = w.double()
+    d = decode_planar16(zq, torch.float64)
+    return (d * wd) @ d.T, (d * wd.abs()) @ d.T
+
+
+def _weighted_rel(got, want, scale):
+    diff = (got.double() - want).abs()
+    return float(torch.where(scale > 0, diff / scale.clamp(min=1e-300),
+                             diff * torch.inf).nan_to_num(0.0).max())
+
+
+def _gcta_weights(rng, snps, signs=False):
+    """GCTA's 1 / (2pq m) over allele frequencies down to 2pq = 2e-12
+    (weights from ~1e-5 to ~1e7 at m = 65,536), or those weights with
+    random signs."""
+    p = np.concatenate([rng.uniform(1e-12, 0.5, snps - snps // 8),
+                        10.0 ** rng.uniform(-12, -2, snps // 8)])
+    rng.shuffle(p)
+    w = 1.0 / (2.0 * p * (1.0 - p) * snps)
+    if signs:
+        w *= rng.choice([-1.0, 1.0], snps)
+    return w
+
+
+@pytest.mark.parametrize("rows,kw,kind", [
+    (200, 4096, "positive"), (129, 4096, "gcta"), (300, 1000, "gcta"),
+    (129, 4096, "mixed"), (257, 700, "mixed"), (65, 4096, "tiny")])
+def test_crossprod_weighted_long_sums(dev, rows, kw, kind):
+    """B9 over up to 65,536 terms against the float64 product, each output's
+    error within 4e-6 of its sum of |terms| (the smoke's limit): positive
+    weights (the sums grow without cancelling), GCTA-range weights
+    (1e-5 .. 1e7), the same with mixed signs, and weights from 1e-8 up."""
+    rng = np.random.default_rng(rows + kw)
+    zq = _words(rng, rows, kw).to(dev)
+    snps = 16 * kw - 5
+    w = {"positive": lambda: rng.uniform(0.5, 2.0, snps),
+         "gcta": lambda: _gcta_weights(rng, snps),
+         "mixed": lambda: _gcta_weights(rng, snps, signs=True),
+         "tiny": lambda: 10.0 ** rng.uniform(-8, -6, snps)}[kind]()
+    w = torch.as_tensor(w, dtype=torch.float32, device=dev)
+    want, scale = _weighted_f64(zq, w)
+    got = packed_crossprod_weighted(zq, w)
+    assert bool(torch.isfinite(got).all())
+    assert _weighted_rel(got, want, scale) <= 4e-6
+
+
+@pytest.mark.parametrize("rows,kw", [(200, 4096), (129, 300)])
+def test_crossprod_weighted_needs_every_digit(dev, rows, kw):
+    """The grade control inside the kernel: on w's first masked digit h1
+    alone, and on h1 + h2 (weights whose split is (h1, 0, 0) and (h1, h2,
+    0)), the product reads above the 4e-6 limit that w's three digits
+    meet, on GCTA-range weights."""
+    rng = np.random.default_rng(kw)
+    zq = _words(rng, rows, kw).to(dev)
+    w = torch.as_tensor(_gcta_weights(rng, 16 * kw), dtype=torch.float32,
+                        device=dev)
+    want, scale = _weighted_f64(zq, w)
+    h1 = (w.view(torch.int32) & -65536).view(torch.float32)
+    h2 = ((w - h1).view(torch.int32) & -65536).view(torch.float32)
+    rel = [_weighted_rel(packed_crossprod_weighted(zq, v), want, scale)
+           for v in (h1, h1 + h2, w)]
+    assert rel[2] <= 4e-6 < min(rel[0], rel[1])
+    assert rel[0] > rel[1]
+
+
+def test_crossprod_weighted_called_indicator(dev):
+    """The pair denominators' product: the called-indicator packing of a
+    panel with 5% missing calls at w = 2pq, against the float64 product."""
+    from miraculix_tpu_torch import from_dense
+    from miraculix_tpu_torch.io import bed
+    from miraculix_tpu_torch.ops.grm import called_indicator_packing
+
+    g = from_dense(bed.simulate_genotypes(300, 5000, seed=3,
+                                          missing_rate=0.05),
+                   keep_missing_info=True, device=dev)
+    ind = called_indicator_packing(g)
+    f = g.freq.to(torch.float32)
+    w = 2.0 * f * (1.0 - f)
+    want, scale = _weighted_f64(ind, w)
+    got = packed_crossprod_weighted(ind, w)
+    assert _weighted_rel(got, want, scale) <= 4e-6
+    assert torch.equal(got, got.T)
+
+
+@pytest.mark.parametrize("rows,kw", [(300, 37), (129, 64)])
+def test_crossprod_weighted_repeats_and_is_symmetric(dev, rows, kw):
+    """Two calls give the same bits, the full grid is symmetric bit for bit
+    and equals the triangle with its mirror, on mixed-sign weights."""
+    rng = np.random.default_rng(rows * kw)
+    zq = _words(rng, rows, kw).to(dev)
+    w = torch.as_tensor(_gcta_weights(rng, 16 * kw, signs=True),
+                        dtype=torch.float32, device=dev)
+    tri = packed_crossprod_weighted(zq, w)
+    full = packed_crossprod_weighted(zq, w, triangle=False)
+    assert torch.equal(tri, packed_crossprod_weighted(zq, w))
+    assert torch.equal(full, packed_crossprod_weighted(zq, w,
+                                                       triangle=False))
+    assert torch.equal(full, full.T) and torch.equal(tri, tri.T)
+    assert torch.equal(tri, full)
+
+
+def test_crossprod_weighted_does_not_spill(dev):
+    """The kernel compiles without spills and fits a block on an SM."""
+    info = _kernels.weighted_info()
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1
+    assert info["threads"] == 32 * (info["tile"] // 32) ** 2
 
 
 @pytest.mark.parametrize("rows,kw,cols", [

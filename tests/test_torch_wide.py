@@ -209,7 +209,9 @@ def test_shapes_follow_the_source():
         assert sh.NT_MAX <= (8 if passes == 1 else 4)
         assert sh.KS % 4 == 0 and sh.KS % sh.PROMOTE == 0
         assert 1 <= sh.PROMOTE <= 32 and sh.STAGES >= 2
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in SRC
+    mma = (Path(_kernels.__file__).parent / "csrc" / "mma.cuh").read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in mma
+    assert "mx::mma_bf16_zero(" in SRC and "mx::mma_bf16(" in SRC
     assert "fmaf" not in SRC and "rhs_value" not in SRC
 
 

@@ -45,7 +45,8 @@ from pathlib import Path
 
 sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-PEAK_INT8, HBM_RATE = 1979e12, 3.35e12   # H100 SXM data sheet
+# H100 SXM data sheet: dense int8 and bf16 peaks, HBM3 rate
+PEAK_INT8, PEAK_BF16, HBM_RATE = 1979e12, 989e12, 3.35e12
 DIAGNOSTIC = "cut: "
 vp, i32 = ctypes.c_void_p, ctypes.c_int
 
@@ -305,18 +306,30 @@ def matmul_int8_bench(built: dict, dev, rng) -> dict:
             "notes": notes}
 
 
-KERNELS = {   # name -> (source file, variants, bench)
-    "crossprod": ("crossprod.cu", CROSSPROD, crossprod_bench),
-    "matmul_int8": ("matmul_int8.cu", MATMUL_INT8, matmul_int8_bench),
+KERNELS = {   # name -> (source file, variants, bench, peak op/s)
+    "crossprod": ("crossprod.cu", CROSSPROD, crossprod_bench, PEAK_INT8),
+    "matmul_int8": ("matmul_int8.cu", MATMUL_INT8, matmul_int8_bench,
+                    PEAK_INT8),
 }
 
 
-def main() -> int:
+def sweep(kernels: dict) -> int:
+    """The command line of a sweep over ``kernels`` (name -> (source file,
+    variants: a dict, or a function of the source text returning one,
+    bench, the peak op/s of its bound); KERNEL is asked for where there
+    are several): build the variants, time them in turns and print the
+    report.  A bench returns ``launch(name, shape)`` (a launch returning
+    its error code), ``shapes`` (shape -> (multiply-adds, bytes moved,
+    reps)), ``info`` (variant -> its kernels' attributes) and either
+    ``out`` (shape -> the output tensor, held bit for bit to the committed
+    kernel's) or ``error(shape)`` (the last launch's error), and may
+    return ``notes()`` (lines printed last)."""
     import numpy as np
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("kernel", choices=list(KERNELS))
+    if len(kernels) > 1:
+        ap.add_argument("kernel", choices=list(kernels))
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--source", action="append", default=[],
                     metavar="NAME=PATH", help="also time this copy of the "
@@ -325,15 +338,19 @@ def main() -> int:
                     help="time only this variant (repeatable; the committed "
                     "kernel is always timed)")
     args = ap.parse_args()
-    source, variants, bench = KERNELS[args.kernel]
-    unknown = set(args.only) - set(variants)
-    if unknown:
-        ap.error(f"no {args.kernel} variants {sorted(unknown)}")
-    if not torch.cuda.is_available():
-        print("torch_int8_sweep: no CUDA device", file=sys.stderr)
-        return 2
+    kernel = args.kernel if len(kernels) > 1 else next(iter(kernels))
+    source, variants, bench, peak = kernels[kernel]
     from miraculix_tpu_torch import _kernels
 
+    if callable(variants):
+        variants = variants((_kernels._CSRC / source).read_text())
+    unknown = set(args.only) - set(variants)
+    if unknown:
+        ap.error(f"no {kernel} variants {sorted(unknown)}")
+    if not torch.cuda.is_available():
+        print(f"{ap.prog}: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
     sources = dict(a.split("=", 1) for a in args.source)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -344,17 +361,23 @@ def main() -> int:
         built = build(_kernels._CSRC, source, variants, sources, Path(tmp),
                       _kernels._nvcc(), _kernels.NVCC_FLAGS, args.only)
         b = bench(built, dev, np.random.default_rng(0))
-        launch, shapes, out = b["launch"], b["shapes"], b["out"]
+        launch, shapes = b["launch"], b["shapes"]
         names = list(b["info"])
         equal = dict.fromkeys(names, True)
+        err = {n: {} for n in names}
         for s in shapes:
-            launch("committed", s)
-            torch.cuda.synchronize()
-            want = out[s].clone()
-            for name in names:
-                launch(name, s)
+            want = None
+            for name in ["committed"] + [n for n in names
+                                         if n != "committed"]:
+                if launch(name, s):
+                    raise RuntimeError(f"{name!r} {s}: launch failed")
                 torch.cuda.synchronize()
-                equal[name] &= bool(torch.equal(out[s], want))
+                if "error" in b:
+                    err[name][s] = b["error"](s)
+                elif want is None:
+                    want = b["out"][s].clone()
+                else:
+                    equal[name] &= bool(torch.equal(b["out"][s], want))
             del want
         times = {(n, s): [] for n in names for s in shapes}
         for _ in range(args.rounds):
@@ -367,16 +390,19 @@ def main() -> int:
             cells = []
             for s, (macs, nbytes, _) in shapes.items():
                 ms = statistics.median(times[(name, s)])
-                bms = 1e3 * max(2 * macs / PEAK_INT8, nbytes / HBM_RATE)
+                bms = 1e3 * max(2 * macs / peak, nbytes / HBM_RATE)
                 cells.append(f"{s} {ms:.4f} ms ({2e-9 * macs / ms:.1f} T "
-                             f"op/s, {100 * bms / ms:.1f}% of its bound)")
+                             f"op/s, {100 * bms / ms:.1f}% of its bound "
+                             f"{bms:.4f} ms" + (f", err {err[name][s]:.3g})"
+                                                if "error" in b else ")"))
             tag = " (diagnostic)" if name.startswith(DIAGNOSTIC) else ""
-            print(f"{name}{tag}: {'; '.join(cells)}; {b['info'][name]}; "
-                  f"equal {equal[name]}", flush=True)
-        for line in b["notes"]():
+            print(f"{name}{tag}: {'; '.join(cells)}; {b['info'][name]}"
+                  + ("" if "error" in b else f"; equal {equal[name]}"),
+                  flush=True)
+        for line in b.get("notes", list)():
             print(line, flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(sweep(KERNELS))

@@ -27,21 +27,15 @@ named variants (the committed kernel is always timed).
 """
 from __future__ import annotations
 
-import argparse
 import ctypes
 import os
 import re
-import statistics
-import subprocess
 import sys
-import tempfile
-from pathlib import Path
 
 sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torch_int8_sweep import DIAGNOSTIC, build, event_ms, words  # noqa: E402
+from torch_int8_sweep import PEAK_BF16, sweep, words  # noqa: E402
 
-PEAK_BF16 = 989e12    # H100 SXM data sheet, dense
 SOURCE = "wide_dgemm.cu"
 SHAPE = r"using {} = Shape<(\d+), (\d+), (\d+), (\d+), (\d+)>;"
 NAMES = ("One", "Two", "Three")          # one, two, three bf16 parts
@@ -70,9 +64,9 @@ def variants(text: str) -> dict:
     """name -> [(pattern, replacement)], each of which must match."""
     copies = [(r"if \(s < nst\) load\(s\);", ";"),
               (r"if \(s \+ C::STAGES - 1 < nst\) load\([^;]*;", ";")]
-    mma = (r"if \(kk % PROMOTE == 0\) mma_bf16_zero\(d\[p\]\[mi\]\[u\], "
-           r"a\[mi\], bb\);\s*else mma_bf16\(d\[p\]\[mi\]\[u\], a\[mi\], "
-           r"bb\);")
+    mma = (r"if \(kk % PROMOTE == 0\)\s*mx::mma_bf16_zero\(d\[p\]\[mi\]\[u\], "
+           r"a\[mi\], bb\);\s*else\s*mx::mma_bf16\(d\[p\]\[mi\]\[u\], "
+           r"a\[mi\], bb\);")
     decode = (r"a\[mi\]\[(\d)\] = mx::plane_pair_bf16\((x\d), \d\);",
               r"a[mi][\1] = \2;")
     return {
@@ -220,67 +214,5 @@ def wide_bench(built: dict, dev, rng) -> dict:
             "error": error}
 
 
-def main() -> int:
-    import numpy as np
-    import torch
-
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--source", action="append", default=[],
-                    metavar="NAME=PATH", help="also time this copy of the "
-                    "kernel's source (another tree's, headers beside it)")
-    ap.add_argument("--only", action="append", default=[], metavar="NAME",
-                    help="time only this variant (repeatable; the committed "
-                    "kernel is always timed)")
-    args = ap.parse_args()
-    from miraculix_tpu_torch import _kernels
-
-    var = variants((_kernels._CSRC / SOURCE).read_text())
-    unknown = set(args.only) - set(var)
-    if unknown:
-        ap.error(f"no wide variants {sorted(unknown)}")
-    if not torch.cuda.is_available():
-        print("torch_wide_sweep: no CUDA device", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    sources = dict(a.split("=", 1) for a in args.source)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip(), flush=True)
-    dev = torch.device("cuda", 0)
-    with tempfile.TemporaryDirectory() as tmp:
-        built = build(_kernels._CSRC, SOURCE, var, sources, Path(tmp),
-                      _kernels._nvcc(), _kernels.NVCC_FLAGS, args.only)
-        b = wide_bench(built, dev, np.random.default_rng(0))
-        launch, shapes_ = b["launch"], b["shapes"]
-        names = list(b["info"])
-        err = {n: {} for n in names}
-        for name in names:
-            for s in shapes_:
-                if launch(name, s):
-                    raise RuntimeError(f"{name!r} {s}: launch failed")
-                torch.cuda.synchronize()
-                err[name][s] = b["error"](s)
-        times = {(n, s): [] for n in names for s in shapes_}
-        for _ in range(args.rounds):
-            for order in (names, names[::-1]):
-                for name in order:
-                    for s, (_, _, reps) in shapes_.items():
-                        times[(name, s)].append(event_ms(
-                            lambda: launch(name, s), reps))
-        for name in names:
-            cells = []
-            for s, (macs, nbytes, _) in shapes_.items():
-                ms = statistics.median(times[(name, s)])
-                bms = 1e3 * max(2 * macs / PEAK_BF16, nbytes / 3.35e12)
-                cells.append(f"{s} {ms:.4f} ms ({100 * bms / ms:.1f}% of "
-                             f"its bound, err {err[name][s]:.3g})")
-            tag = " (diagnostic)" if name.startswith(DIAGNOSTIC) else ""
-            print(f"{name}{tag}: {'; '.join(cells)}; {b['info'][name]}",
-                  flush=True)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(sweep({"wide": (SOURCE, variants, wide_bench, PEAK_BF16)}))
