@@ -2,7 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels of ``miraculix_tpu_torch/csrc`` and
+Builds the CUDA kernels of ``miraculix_tpu_torch/csrc`` and the native host
+codec of ``miraculix_tpu_torch/io/native`` and
+
+0. writes the ``many_indiv`` panel as a .bed fileset and packs it with
+   ``from_bed`` through the native codec (the fused ingestion), and once
+   through its numpy path, whose words and frequencies must be equal bit
+   for bit (both times printed); ``write_bed``, the main ``from_bed`` and
+   ``ld_prune`` must have run the native codec (its call counts are
+   printed), and the prune scan is timed natively beside the Python greedy
+   scan, which must agree;
 
 1. holds each kernel against its plain torch version on the ``many_indiv``
    panel (65,536 SNPs x 16,384 animals), 'n' and 't', at the shapes the
@@ -204,6 +213,19 @@ def lo_biased(b):
     return hi + 1.5 * torch.exp2(e - 9) + 1.5 * torch.exp2(e - 18)
 
 
+def host_cpu() -> str:
+    """The host CPU's model name, as ``lscpu`` reports it (the native
+    codec's times are the host's)."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=60).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return "unknown"
+    names = [ln.split(":", 1)[1].strip() for ln in out.splitlines()
+             if ln.startswith("Model name")]
+    return names[0] if names else "unknown"
+
+
 def median_chi2_ratio(chi2, qtl) -> float:
     import numpy as np
 
@@ -230,7 +252,7 @@ def main() -> int:
                                      packed_crossprod_rect, packed_matmul,
                                      pairwise_nonmissing, sparse_times_geno,
                                      subset_snps)
-    from miraculix_tpu_torch.io import bed
+    from miraculix_tpu_torch.io import bed, native
     from miraculix_tpu_torch.ops.common import decode_planar16
     from miraculix_tpu_torch.ops.dgemm import (exact_digits, exact_recombine,
                                                packed_matmul_exact,
@@ -259,6 +281,9 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
+    def codec_calls():
+        return {k: v for k, v in native.CALLS.items() if v}
+
     def sync_time(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -279,6 +304,11 @@ def main() -> int:
         return start.elapsed_time(end) / reps
 
     t_start = time.perf_counter()
+    t0 = time.perf_counter()
+    codec_lib = native.build()
+    check(native.get_lib() is not None, "the native codec did not load")
+    log(f"phase codec build: {time.perf_counter() - t0:.3f} s -> {codec_lib}")
+    log(f"host cpu: {host_cpu()}, {os.cpu_count()} cores")
     t0 = time.perf_counter()
     lib = _kernels.build()
     log(f"phase build: {time.perf_counter() - t0:.3f} s -> {lib}")
@@ -367,13 +397,33 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "panel.bed")
+        native.reset_call_counts()
         t0 = time.perf_counter()
         bed.write_bed(path, geno)
         log(f"phase write_bed (host): {time.perf_counter() - t0:.3f} s")
+        log(f"codec calls in write_bed: {codec_calls()}")
+        check(native.CALLS["dense_to_plink"] > 0
+              and native.CALLS["transpose_u8"] > 0,
+              "write_bed did not run the native codec")
+
+        # -- 0. the native ingestion against its numpy path, once -----------
+        native.reset_call_counts()
+        gm, secs = sync_time(lambda: from_bed(path, device=dev))
+        log(f"phase from_bed(device=cuda) (host pack + upload): {secs:.3f} s"
+            f" (native codec: {codec_calls()})")
+        check(native.CALLS["bed_ingest"] == 1,
+              "from_bed did not take the fused native ingestion")
+        with native.disabled():
+            gm_np, secs_np = sync_time(lambda: from_bed(path, device=dev))
+        same = {k: bool(torch.equal(getattr(gm, k), getattr(gm_np, k)))
+                for k in ("zq_n", "zq_t", "freq", "pseudo_freq")}
+        log(f"check from_bed native vs numpy path: {same}; from_bed "
+            f"{secs:.3f} s native, {secs_np:.3f} s numpy")
+        check(all(same.values()),
+              "the native from_bed differs from its numpy path")
+        del gm_np
 
         # -- 1. each kernel against its plain version ----------------------
-        gm, secs = sync_time(lambda: from_bed(path, device=dev))
-        log(f"phase from_bed(device=cuda) (host pack + upload): {secs:.3f} s")
         rng = np.random.default_rng(SEED)
 
         def randn(rows, n):
@@ -844,9 +894,12 @@ def main() -> int:
             return counts
 
         _kernels.reset_launch_counts()
+        native.reset_call_counts()
         gm, secs = sync_time(lambda: from_bed(path))   # the default device
         check(gm.device.type == "cuda", "from_bed did not default to the card")
-    log(f"phase main from_bed: {secs:.3f} s")
+    log(f"phase main from_bed: {secs:.3f} s (native codec: {codec_calls()})")
+    check(native.CALLS["bed_ingest"] == 1,
+          "the main from_bed did not take the fused native ingestion")
     g_mat, secs = sync_time(lambda: grm(gm))
     log(f"phase main grm: {secs:.3f} s shape={tuple(g_mat.shape)}")
     diag, secs = sync_time(lambda: grm_diag(gm, scale=True))
@@ -1057,8 +1110,12 @@ def main() -> int:
     band = counted("ld_windowed", lambda: ld_windowed(gl, window=LD_WINDOW))
     score = counted("ld_score", lambda: ld_score(
         gl, window=LD_WINDOW, adjusted=True, chrom=chrom))
+    native.reset_call_counts()
     keep = counted("ld_prune", lambda: ld_prune(
         gl, window=LD_WINDOW, r2_threshold=LD_R2, chrom=chrom))
+    log(f"codec calls in ld_prune: {codec_calls()}")
+    check(native.CALLS["ld_prune_mask"] == 1,
+          "ld_prune did not run the native scan")
     c1 = N_SNPS // 4
     g1 = subset_snps(gl, np.arange(c1))          # chromosome 1
     r_full = counted("ld", lambda: ld(g1))
@@ -1079,13 +1136,20 @@ def main() -> int:
     # the host greedy scan alone, on the offender band of ld_windowed's r
     f = gl.freq.cpu().numpy().astype(np.float64)
     offend = valid & (band * band > np.float32(LD_R2))
+    maf = np.minimum(f, 1.0 - f)
     t0_scan = time.perf_counter()
-    keep_scan = _ld_prune_greedy(offend, np.minimum(f, 1.0 - f), N_SNPS,
-                                 LD_WINDOW)
-    log(f"phase host greedy prune scan ({N_SNPS} SNPs, window {LD_WINDOW}): "
-        f"{time.perf_counter() - t0_scan:.3f} s")
-    check(bool(np.array_equal(keep_scan, keep)),
+    keep_scan = _ld_prune_greedy(offend, maf, N_SNPS, LD_WINDOW)
+    t_greedy = time.perf_counter() - t0_scan
+    mask = offend.astype(np.uint8)
+    t0_scan = time.perf_counter()
+    keep_native = native.ld_prune_mask(mask, maf)
+    log(f"phase host prune scan ({N_SNPS} SNPs, window {LD_WINDOW}): "
+        f"greedy {t_greedy:.3f} s, native "
+        f"{time.perf_counter() - t0_scan:.4f} s")
+    check(bool(np.array_equal(keep_scan, keep))
+          and bool(np.array_equal(keep_native, keep)),
           "ld_prune differs from the greedy scan of ld_windowed's band")
+    del mask
     # LD scores recomputed in host f64 from the band: adjusted r^2 over the
     # partners on the same chromosome, both directions
     r2 = band.astype(np.float64) ** 2
@@ -1168,10 +1232,12 @@ def main() -> int:
     geno[np.unravel_index(hit, geno.shape)] = 3
     del hit
     log(f"phase missing calls drawn (host): {time.perf_counter() - t0:.3f} s")
+    native.reset_call_counts()
     gt, secs = sync_time(lambda: from_dense(geno, keep_missing_info=True))
     nmiss = int(gt.miss_rows_n.numel())
     log(f"phase from_dense(keep_missing_info=True) (host pack + upload): "
-        f"{secs:.3f} s, {nmiss} missing calls")
+        f"{secs:.3f} s, {nmiss} missing calls (native codec: "
+        f"{codec_calls()})")
     g1m = subset_snps(gt, np.arange(N_SNPS // 4))        # chromosome 1
     t0 = time.perf_counter()
     _kernels.reset_launch_counts()

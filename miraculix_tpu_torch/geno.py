@@ -17,7 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .io import bed, codec
+from .io import bed, codec, native
 
 ROW_MULT = 256  # packed rows pad to this, as in the reference
 
@@ -148,55 +148,78 @@ def from_reference_state(d: dict, device=None) -> GenoMatrix:
                       miss, device)
 
 
-def _pack_pair(geno: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(packing of ``geno``, packing of ``geno.T``) on ``device``, missing
-    zeroed.  The second is packed from row slabs of ``geno`` and only its
-    words are transposed, on the device."""
-    own = _words(codec.pack_planar16(geno, row_mult=ROW_MULT)).to(device)
-    other = _words(codec.pack_planar16_t(geno, row_mult=ROW_MULT))
-    return own, other.to(device).T.contiguous()
+def _check_device_put(device_put: bool) -> None:
+    if not device_put:
+        raise NotImplementedError(
+            "device_put=False: host-resident panels are the out-of-core "
+            "path, not ported yet (ROADMAP A12)")
 
 
-def from_dense(geno: np.ndarray, freq: Optional[np.ndarray] = None,
-               keep_missing_info: bool = False, device=None) -> GenoMatrix:
-    """Pack a dense genotype matrix [indiv, snps] (0/1/2, 3 = missing)."""
-    device = _device(device)
-    geno = np.asarray(geno, dtype=np.uint8)
+def _from_both(geno: np.ndarray, geno_t: np.ndarray, freq, keep_missing_info,
+               row_mult: int, device) -> GenoMatrix:
+    """GenoMatrix from genotypes [indiv, snps] and their C-contiguous
+    transpose: each orientation packs from contiguous rows, and each
+    frequency cache is a column pass."""
     miss = codec.missing_positions(geno) if keep_missing_info else None
     if freq is None:
         freq = codec.allele_freq(geno, axis=0)
-    zq_n, zq_t = _pack_pair(geno, device)
+    zq_n = _words(codec.pack_planar16(geno, row_mult=row_mult))
+    zq_t = _words(codec.pack_planar16(geno_t, row_mult=row_mult))
     n_indiv, n_snps = geno.shape
     return _container(n_snps, n_indiv, zq_n, zq_t, freq,
-                      codec.allele_freq(geno, axis=1), miss, device)
+                      codec.allele_freq(geno_t, axis=0), miss, device)
+
+
+def from_dense(geno: np.ndarray, freq: Optional[np.ndarray] = None,
+               row_mult: int = ROW_MULT, keep_missing_info: bool = False,
+               device_put: bool = True, device=None) -> GenoMatrix:
+    """Pack a dense genotype matrix [indiv, snps] (0/1/2, 3 = missing).
+    ``row_mult`` pads the packed rows of both orientations.
+    ``device_put=False`` (a host-resident panel) raises NotImplementedError:
+    it belongs to the out-of-core path."""
+    _check_device_put(device_put)
+    device = _device(device)
+    geno = np.ascontiguousarray(geno, dtype=np.uint8)
+    return _from_both(geno, codec.transpose_u8(geno), freq,
+                      keep_missing_info, row_mult, device)
 
 
 def from_plink(plink: np.ndarray, snps: int, indiv: int,
                freq: Optional[np.ndarray] = None, **kw) -> GenoMatrix:
-    """Build from raw PLINK bytes [ceil(indiv/4), snps]."""
+    """Build from raw PLINK bytes [ceil(indiv/4), snps]; ``kw`` as
+    :func:`from_dense`."""
     if plink.shape[1] != snps:
         raise ValueError(f"plink bytes cover {plink.shape[1]} SNPs, not {snps}")
     return from_dense(codec.plink_to_dense(plink, indiv), freq=freq, **kw)
 
 
 def from_bed(path: str, freq: Optional[np.ndarray] = None,
-             keep_missing_info: bool = False, device=None) -> GenoMatrix:
-    """Build from a PLINK .bed fileset.  The SNP-major payload decodes
-    straight into the [snps, indiv] orientation; no genotypes are
-    transposed."""
+             row_mult: int = ROW_MULT, keep_missing_info: bool = False,
+             device_put: bool = True, device=None) -> GenoMatrix:
+    """Build from a PLINK .bed fileset.
+
+    With no missing coordinates asked for and the default ``row_mult``, the
+    native fused ingestion goes straight from the SNP-major payload to both
+    packings and both frequency caches, with no dense matrix (as the
+    reference does).  Otherwise, or where the native codec is unavailable,
+    the payload decodes to the [snps, indiv] orientation, is transposed once
+    and both orientations are packed; the words and frequencies are the
+    same on both paths."""
+    _check_device_put(device_put)
     device = _device(device)
     payload, n_snps, n_indiv = bed.read_bed_payload(path)
+    if not keep_missing_info and row_mult == ROW_MULT:
+        ipad, kws = codec.planar16_dims(n_indiv, n_snps, row_mult=ROW_MULT)
+        spad, kwi = codec.planar16_dims(n_snps, n_indiv, row_mult=ROW_MULT)
+        out = native.bed_ingest(payload, n_snps, n_indiv, spad, kwi, ipad, kws)
+        if out is not None:
+            zqt, zqn, freq_c, pfreq = out
+            return _container(n_snps, n_indiv, _words(zqn), _words(zqt),
+                              freq_c if freq is None else freq, pfreq,
+                              None, device)
     geno_t = codec.payload_to_dense(payload, n_indiv)    # [snps, indiv]
-    miss = None
-    if keep_missing_info:
-        ms, mi = codec.missing_positions(geno_t)
-        order = np.lexsort((ms, mi))                     # by indiv, then SNP
-        miss = (mi[order], ms[order])
-    if freq is None:
-        freq = codec.allele_freq(geno_t, axis=1)
-    zq_t, zq_n = _pack_pair(geno_t, device)
-    return _container(n_snps, n_indiv, zq_n, zq_t, freq,
-                      codec.allele_freq(geno_t, axis=0), miss, device)
+    return _from_both(codec.transpose_u8(geno_t), geno_t, freq,
+                      keep_missing_info, row_mult, device)
 
 
 def subset_snps(g: GenoMatrix, idx, freq: Optional[np.ndarray] = None

@@ -1,8 +1,11 @@
 """Host-side genotype codecs: PLINK .bed bytes <-> dense genotypes <-> planar16.
 
-Pure numpy twin of ``miraculix_tpu.io.codec`` (which cannot be imported here:
-every ``miraculix_tpu`` import pulls in jax).  The words produced are bit for
-bit those of the reference, so packed panels move between the two packages
+Twin of ``miraculix_tpu.io.codec`` (which cannot be imported here: every
+``miraculix_tpu`` import pulls in jax).  Each public function runs the
+port's native codec (``io/native``) where it is available and otherwise its
+numpy version, kept under the name ``<function>_numpy``: the oracle, to
+which the native output is bit-equal.  The words produced are bit for bit
+those of the reference, so packed panels move between the two packages
 unchanged.
 
 planar16: for a genotype matrix ``G[rows, cols]`` (entries 0/1/2, missing
@@ -18,6 +21,8 @@ PLINK .bed semantics: 2-bit code 0b00 -> 0, 0b01 -> missing, 0b10 -> 1,
 from __future__ import annotations
 
 import numpy as np
+
+from . import native
 
 MISSING = 3  # dense marker of a missing genotype (PLINK code 0b01)
 
@@ -42,6 +47,11 @@ _GENO_ENCODE = np.array([0b00, 0b10, 0b11, 0b01], dtype=np.uint8)
 def plink_to_dense(plink: np.ndarray, n_within: int) -> np.ndarray:
     """Unpack PLINK bytes uint8 [ceil(n_within/4), n_major] to genotype values
     uint8 [n_within, n_major] (0/1/2, 3 = missing)."""
+    out = native.plink_to_dense(plink, n_within)
+    return plink_to_dense_numpy(plink, n_within) if out is None else out
+
+
+def plink_to_dense_numpy(plink: np.ndarray, n_within: int) -> np.ndarray:
     plink = np.asarray(plink, dtype=np.uint8)
     nbytes, nmajor = plink.shape
     vals = _PLINK_DECODE[plink]  # [nbytes, nmajor, 4]
@@ -52,6 +62,11 @@ def payload_to_dense(payload: np.ndarray, n_within: int) -> np.ndarray:
     """Decode the raw SNP-major payload uint8 [n_major, ceil(n_within/4)] to
     uint8 [n_major, n_within] -- the transposed orientation of
     :func:`plink_to_dense`, reached without any transpose."""
+    out = native.payload_to_dense(payload, n_within)
+    return payload_to_dense_numpy(payload, n_within) if out is None else out
+
+
+def payload_to_dense_numpy(payload: np.ndarray, n_within: int) -> np.ndarray:
     payload = np.asarray(payload, dtype=np.uint8)
     nmajor, nbytes = payload.shape
     return _PLINK_DECODE[payload].reshape(nmajor, nbytes * 4)[:, :n_within]
@@ -60,6 +75,11 @@ def payload_to_dense(payload: np.ndarray, n_within: int) -> np.ndarray:
 def dense_to_plink(geno: np.ndarray) -> np.ndarray:
     """Pack genotype values [n_within, n_major] (0/1/2, 3 = missing) into PLINK
     bytes uint8 [ceil(n_within/4), n_major]."""
+    out = native.dense_to_plink(geno)
+    return dense_to_plink_numpy(geno) if out is None else out
+
+
+def dense_to_plink_numpy(geno: np.ndarray) -> np.ndarray:
     geno = np.asarray(geno, dtype=np.uint8)
     n_within, nmajor = geno.shape
     nbytes = (n_within + 3) // 4
@@ -72,9 +92,33 @@ def dense_to_plink(geno: np.ndarray) -> np.ndarray:
     return out
 
 
+def transpose_u8(a: np.ndarray) -> np.ndarray:
+    """C-contiguous transpose of a uint8 matrix (blocked, native)."""
+    out = native.transpose_u8(a)
+    return np.ascontiguousarray(np.asarray(a, np.uint8).T) if out is None \
+        else out
+
+
+def plink_transpose_packed(plink: np.ndarray, n_within: int,
+                           n_major: int) -> np.ndarray:
+    """Transpose a packed PLINK matrix [ceil(n_within/4), n_major] ->
+    [ceil(n_major/4), n_within] (decode, transpose, re-encode; the
+    reference's compressed_operations.jl:45-66)."""
+    return dense_to_plink(transpose_u8(plink_to_dense(plink, n_within)))
+
+
 def allele_freq(geno: np.ndarray, axis: int = 0) -> np.ndarray:
     """Allele frequency f = sum(genotypes) / (2 * n_called) along ``axis``;
     missing entries (3) count in neither sum (float64)."""
+    g = np.asarray(geno)
+    if g.dtype == np.uint8 and g.ndim == 2 and axis in (0, 1, -1, -2):
+        out = native.allele_freq(g if axis in (0, -2) else transpose_u8(g))
+        if out is not None:
+            return out
+    return allele_freq_numpy(g, axis)
+
+
+def allele_freq_numpy(geno: np.ndarray, axis: int = 0) -> np.ndarray:
     g = np.asarray(geno)
     n_miss = np.count_nonzero(g == MISSING, axis=axis)
     # integer-exact: the raw sum counts every missing entry as 3
@@ -104,7 +148,20 @@ def pack_planar16(geno: np.ndarray, lane: int = LANE, row_mult: int = SUBLANE,
                   zero_missing: bool = True) -> np.ndarray:
     """Pack genotypes [rows, cols] (0/1/2, 3 = missing) into uint32 planar16
     words [rows_pad, Kw].  Missing entries are zeroed unless
-    ``zero_missing=False``."""
+    ``zero_missing=False``.  A transposed view packs as it stands (the
+    native pack reads it by its strides; no host copy)."""
+    g = np.asarray(geno)
+    if zero_missing:
+        out = native.pack_planar16(g, *planar16_dims(*g.shape, lane,
+                                                     row_mult))
+        if out is not None:
+            return out
+    return pack_planar16_numpy(g, lane, row_mult, zero_missing)
+
+
+def pack_planar16_numpy(geno: np.ndarray, lane: int = LANE,
+                        row_mult: int = SUBLANE,
+                        zero_missing: bool = True) -> np.ndarray:
     g = np.asarray(geno, dtype=np.uint8)
     rows, cols = g.shape
     rp, kw = planar16_dims(rows, cols, lane, row_mult)
@@ -120,26 +177,6 @@ def pack_planar16(geno: np.ndarray, lane: int = LANE, row_mult: int = SUBLANE,
     return words
 
 
-def pack_planar16_t(geno: np.ndarray, lane: int = LANE,
-                    row_mult: int = SUBLANE) -> np.ndarray:
-    """``pack_planar16(geno.T).T`` without transposing any genotypes: the
-    planes of the transposed packing are contiguous row slabs of ``geno``.
-    Returns uint32 [Kw, cols_pad] (missing zeroed); transposing these words
-    moves 4x fewer bytes than transposing the genotypes."""
-    g = np.asarray(geno, dtype=np.uint8)
-    rows, cols = g.shape
-    cp, kw = planar16_dims(cols, rows, lane, row_mult)
-    words = np.zeros((kw, cp), dtype=np.uint32)
-    for m in range(16):
-        r0, r1 = m * kw, min((m + 1) * kw, rows)
-        if r0 >= rows:
-            break
-        plane = g[r0:r1].astype(np.uint32)
-        plane[plane == MISSING] = 0
-        words[: r1 - r0, :cols] |= plane << np.uint32(2 * m)
-    return words
-
-
 def unpack_planar16(words: np.ndarray, rows: int, cols: int) -> np.ndarray:
     """Inverse of :func:`pack_planar16` -> uint8 [rows, cols]."""
     w = np.asarray(words).view(np.uint32)
@@ -148,3 +185,15 @@ def unpack_planar16(words: np.ndarray, rows: int, cols: int) -> np.ndarray:
     for m in range(16):
         planes[:, m, :] = (w >> np.uint32(2 * m)) & np.uint32(3)
     return planes.reshape(rp, 16 * kw)[:rows, :cols]
+
+
+def unpack_planar16_cols(words: np.ndarray, rows: int,
+                         col_idx: np.ndarray) -> np.ndarray:
+    """Decode the selected columns of planar16 words without the whole dense
+    panel: column c lives in word c % Kw at bits 2*(c // Kw).  Returns uint8
+    [rows, len(col_idx)] (missing entries were zeroed at pack time)."""
+    w = np.asarray(words).view(np.uint32)
+    c = np.asarray(col_idx, np.int64)
+    kw = w.shape[1]
+    shift = (np.uint32(2) * (c // kw).astype(np.uint32))[None, :]
+    return ((w[:rows][:, c % kw] >> shift) & np.uint32(3)).astype(np.uint8)

@@ -60,14 +60,30 @@ def rhs_values(b: torch.Tensor, rhs: str) -> torch.Tensor:
     return hi + (b - hi).to(torch.bfloat16).to(torch.float32)
 
 
+F64_BLOCK = 1 << 25   # decoded float64 elements a plain product's block holds
+
+
+def _block_rows(words: torch.Tensor) -> int:
+    """Packed rows of ``words`` whose float64 decode fills one block."""
+    return max(1, F64_BLOCK // (16 * words.shape[1]))
+
+
 def packed_matmul_tall_plain(zq_other: torch.Tensor, b: torch.Tensor,
                              center_vec=None, mode: str = "split"):
-    """Plain version of :func:`packed_matmul_tall`: decode densely in f32
-    and multiply by the sum of the mode's bf16 parts of B (hi + lo in split
-    mode, bf16(B) in bf16 mode, B itself in f32 mode); v from B in f32."""
+    """Plain version of :func:`packed_matmul_tall`: decode(zq)^T times the
+    sum of the mode's bf16 parts of B (hi + lo in split mode, bf16(B) in
+    bf16 mode, B itself in f32 mode), summed in float64 over contraction
+    blocks and rounded to f32 once (a one-column f32 product would be one
+    long f32 dot); v from B in f32."""
     contract = b.shape[0]
-    d = decode_planar16(zq_other[:contract], torch.float32)
-    c = d.T @ rhs_values(b, TALL_RHS[mode])
+    bv = rhs_values(b, TALL_RHS[mode]).to(torch.float64)
+    c = torch.zeros((16 * zq_other.shape[1], b.shape[1]),
+                    dtype=torch.float64, device=b.device)
+    step = _block_rows(zq_other)
+    for r0 in range(0, contract, step):
+        r1 = min(r0 + step, contract)
+        c += decode_planar16(zq_other[r0:r1], torch.float64).T @ bv[r0:r1]
+    c = c.to(torch.float32)
     if center_vec is None:
         return c
     return c, center_vec @ b
@@ -118,11 +134,15 @@ def wide_rhs(n: int, split: bool, single_bf16: bool) -> str:
 def packed_matmul_plain(zq: torch.Tensor, b: torch.Tensor, *,
                         split: bool = True,
                         single_bf16: bool = False) -> torch.Tensor:
-    """Plain version of :func:`packed_matmul`: decode densely in f32 and
-    multiply by the instance's RHS values."""
+    """Plain version of :func:`packed_matmul`: decode times the instance's
+    RHS values, summed in float64 by row blocks and rounded to f32 once."""
     b = b.to(torch.float32)
-    d = decode_planar16(zq, torch.float32)[:, :b.shape[0]]
-    return d @ rhs_values(b, wide_rhs(b.shape[1], split, single_bf16))
+    bv = rhs_values(b, wide_rhs(b.shape[1], split, single_bf16)).to(
+        torch.float64)
+    step = _block_rows(zq)
+    return torch.cat([
+        decode_planar16(zq[r0:r0 + step], torch.float64)[:, :b.shape[0]] @ bv
+        for r0 in range(0, zq.shape[0], step)]).to(torch.float32)
 
 
 def packed_matmul(zq: torch.Tensor, b, *, split: bool = True,

@@ -26,7 +26,7 @@ import torch
 
 from .. import _kernels
 from ..geno import ROW_MULT, GenoMatrix, _device, _words, from_dense
-from ..io import bed, codec
+from ..io import bed, codec, native
 from .common import decode_planar16, packed_row_sq_stats
 from .dgemm import dgemm
 from .sparse import sparse_times_geno
@@ -619,8 +619,10 @@ def ld_prune(g: GenoMatrix, window: int = 512, r2_threshold: float = 0.2,
     exceeds ``r2_threshold``, drop the member with the LOWER MAF (ties drop
     the later SNP).  Pairs across a ``chrom`` boundary are never
     candidates.  Without missing correction each row block thresholds its
-    band on the device and only a uint8 mask transfers.  Returns a boolean
-    keep-mask [snps]."""
+    band on the device and only a uint8 mask transfers.  The scan runs in
+    the native codec (``mx_ld_prune_mask`` on the mask, ``mx_ld_prune`` on
+    the corrected band), or in :func:`_ld_prune_greedy` where that is
+    unavailable.  Returns a boolean keep-mask [snps]."""
     snps = g.snps
     f = _host(g.freq)
     maf = np.minimum(f, 1.0 - f)
@@ -634,10 +636,14 @@ def ld_prune(g: GenoMatrix, window: int = 512, r2_threshold: float = 0.2,
             r0, r1 = i * bd.rb, min((i + 1) * bd.rb, snps)
             blk = _ld_mask_block(*bd.args(i), thr, window_c, g.indiv, snps)
             offend[r0:r1] = blk.cpu().numpy()[: r1 - r0]
-        return _ld_prune_greedy(offend > 0, maf, snps, window_c)
+        keep = native.ld_prune_mask(offend, maf)
+        return (_ld_prune_greedy(offend > 0, maf, snps, window_c)
+                if keep is None else keep)
     band2 = ld_windowed(g, window=window, row_block=row_block, squared=True,
                         chrom=chrom, correct_missing=True)
-    return _ld_prune_greedy(band2 > r2_threshold, maf, snps, window)
+    keep = native.ld_prune(band2, maf, r2_threshold)
+    return (_ld_prune_greedy(band2 > r2_threshold, maf, snps, window)
+            if keep is None else keep)
 
 
 def _ld_prune_greedy(offend: np.ndarray, maf, snps: int,
@@ -691,6 +697,22 @@ def _blocked_tiles(zq: torch.Tensor, count: int, rb: int, device, out,
     return out
 
 
+def _ingest_zq_n(path: str):
+    """(host words zq_n, freq, indiv) of a .bed fileset: the fused native
+    ingestion of that one packing, with no dense matrix; or decode and pack
+    where the native codec is unavailable."""
+    payload, snps, indiv = bed.read_bed_payload(path)
+    ipad, kws = codec.planar16_dims(indiv, snps, row_mult=ROW_MULT)
+    spad, kwi = codec.planar16_dims(snps, indiv, row_mult=ROW_MULT)
+    out = native.bed_ingest(payload, snps, indiv, spad, kwi, ipad, kws,
+                            want_t=False, want_pfreq=False)
+    if out is not None:
+        return _words(out[1]), out[2], indiv
+    dense = codec.plink_to_dense(codec.transpose_u8(payload), indiv)
+    return (_words(codec.pack_planar16(dense, row_mult=ROW_MULT)),
+            codec.allele_freq(dense, axis=0), indiv)
+
+
 def grm_blocked(source, row_block: int = 8192, scale: bool = True,
                 out: Optional[np.ndarray] = None, device=None) -> np.ndarray:
     """Out-of-core VanRaden GRM for panels whose relationship matrix does
@@ -699,8 +721,9 @@ def grm_blocked(source, row_block: int = 8192, scale: bool = True,
     a host float32 matrix; the finish runs on the host in float64.
 
     ``source``: a GenoMatrix (its device), a dense uint8 genotype matrix or
-    a .bed path (packed on the host; only row blocks go to ``device``, the
-    card unless named).  Missing genotypes contribute the packed-0 bias.
+    a .bed path (packed on the host, a path by the fused native ingestion of
+    the one packing it needs; only row blocks go to ``device``, the card
+    unless named).  Missing genotypes contribute the packed-0 bias.
     Returns the [indiv, indiv] (scaled) GRM as host numpy float32."""
     if isinstance(source, GenoMatrix):
         zq, indiv = source.zq_n, source.indiv
@@ -709,10 +732,7 @@ def grm_blocked(source, row_block: int = 8192, scale: bool = True,
     else:
         device = _device(device)
         if isinstance(source, str):
-            payload, _, indiv = bed.read_bed_payload(source)
-            geno_t = codec.payload_to_dense(payload, indiv)  # [snps, indiv]
-            freq = codec.allele_freq(geno_t, axis=1)
-            zq = _words(codec.pack_planar16_t(geno_t, row_mult=ROW_MULT)).T
+            zq, freq, indiv = _ingest_zq_n(source)
         else:
             dense = np.asarray(source, dtype=np.uint8)
             indiv = dense.shape[0]

@@ -123,9 +123,9 @@ def test_codec_functions_match_reference():
         np.testing.assert_array_equal(
             pt_codec.unpack_planar16(w, 29, 77),
             ref_codec.unpack_planar16(w, 29, 77))
-    np.testing.assert_array_equal(
-        pt_codec.pack_planar16_t(g, row_mult=256),
-        ref_codec.pack_planar16(np.ascontiguousarray(g.T), row_mult=256).T)
+    np.testing.assert_array_equal(   # a transposed view packs as it stands
+        pt_codec.pack_planar16(g.T, row_mult=256),
+        ref_codec.pack_planar16(np.ascontiguousarray(g.T), row_mult=256))
     assert pt_codec.planar16_dims(29, 77, row_mult=256) == \
         ref_codec.planar16_dims(29, 77, row_mult=256)
 
@@ -173,8 +173,19 @@ def test_freq_cache_family_matches_reference():
 
 
 def test_port_imports_without_jax():
+    """The port and its native codec load nothing of jax or of the JAX
+    package; the codec library is built from the port's own source into the
+    port's git-ignored build directory."""
     code = ("import sys, miraculix_tpu_torch, miraculix_tpu_torch.gblup, "
-            "miraculix_tpu_torch.io.bed, miraculix_tpu_torch._kernels; "
+            "miraculix_tpu_torch.io.bed, miraculix_tpu_torch.io.codec, "
+            "miraculix_tpu_torch.io.native, miraculix_tpu_torch.ops.grm, "
+            "miraculix_tpu_torch._kernels; "
+            "from pathlib import Path; "
+            "from miraculix_tpu_torch.io import native; "
+            "lib = Path(native.get_lib()._name).resolve(); "
+            "build = Path(miraculix_tpu_torch.__file__).parent / '_build'; "
+            "assert lib.is_relative_to(build.resolve()), lib; "
+            "assert native.codec_version() is not None; "
             "bad = [m for m in sys.modules "
             "if m in ('jax', 'miraculix_tpu') "
             "or m.startswith(('jax.', 'miraculix_tpu.'))]; "
