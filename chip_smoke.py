@@ -48,8 +48,22 @@ codec of ``miraculix_tpu_torch/io/native`` and
 2. runs the main GBLUP path at that size from the launch counters' zero:
    simulate -> write .bed -> ``from_bed`` on the GPU -> ``grm`` (diagonal
    checked against ``grm_diag``) -> simulated phenotypes -> ``gblup`` (CG
-   converged, g_hat correlated with the true breeding values); then, each
-   from the counters' zero, the f64 tier: ``gblup(solver="refined",
+   converged, g_hat correlated with the true breeding values); then, from
+   the counters' zero, the rest of ``gblup.py`` on that trait (h2 = 0.5),
+   a second one genetically correlated 0.5 with it and two independent
+   ones: ``estimate_h2_he`` (within 0.15 of 0.5), ``estimate_h2_reml``
+   without and with the 3 GWAS covariates (converged, within 0.1, a
+   positive SE), ``cross_validate`` over 5 folds (mean correlation >= 0.2),
+   ``estimate_bivar_reml`` (converged, both h2 within 0.1, rg within 0.15
+   of 0.5), ``estimate_multi_reml`` on the 4 traits (converged, through
+   the wide split kernel), ``multi_trait_gblup`` with the bivariate
+   components and 10% of trait 2 missing (every cell finite, corr(g_hat,
+   BV) >= 0.7 on both traits), ``gblup_from_grm(grm(scale=True))``
+   (fitted within 1e-3 of ``gblup(n_pcs=0, tol=1e-6)``) and ``run_gblup``
+   with AI-REML on the .bed with the phenotypes in its .fam (exit 0,
+   65,536 marker effects written, printed cor(fitted, y) >= 0.7), each
+   with its seconds, launches and CG totals; then, each from the counters'
+   zero, the f64 tier: ``gblup(solver="refined",
    tol=1e-10)`` and ``grm_matvec_f64`` on 12 columns (converged, g_hat
    within 1e-3 of the f32 run's, the matvec within 1e-12 of a float64
    product over decoded blocks), ``gblup(solver="dense")`` (g_hat within
@@ -77,10 +91,13 @@ codec of ``miraculix_tpu_torch/io/native`` and
    their float64 mean-imputed definitions (1e-4 of max |want|), the LD
    diagonal 1 within 1e-6; the host D D^T and the segment sum timed apart;
 7. checks the GPU pipeline against the port's CPU path on small panels
-   (GBLUP cg/refined/dense, GRM, the four scans, ``sparse_times_geno``; the
-   f64 dgemm, the LD and GRM families with and without the missing
-   corrections on a panel with 2% missing genotypes), at 1e-3, or 1e-12
-   for the f64 tier.
+   (GBLUP cg/refined/dense, GRM, the four scans, ``sparse_times_geno``, HE,
+   exact-probe AI-REML, ``cross_validate``, two-trait REML with the device
+   and the host V-solve, ``multi_trait_gblup``, ``gblup_from_grm`` and
+   ``run_gblup``'s marker effects on simulated phenotypes; the f64 dgemm,
+   the LD and GRM families with and without the missing corrections on a
+   panel with 2% missing genotypes), at 1e-3 (h2 and its SE: absolute), or
+   1e-12 for the f64 tier.
 
 Earlier lines report the compiler's registers and spills (and, for the
 integer, wide and weighted kernels, their shared memory and resident blocks
@@ -94,6 +111,8 @@ prints no result line.
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -114,10 +133,15 @@ WIDE_RTOL = 4e-6
 DIAG_RTOL = 1e-4      # grm() diagonal vs grm_diag(scale=True)
 MIN_BV_CORR = 0.7     # corr(g_hat, true BV), in-sample, h2 = 0.5
 SMALL_RTOL = 1e-3     # GPU vs CPU path on the small panel
+SMALL_ATOL = 1e-3     # the same for h2 and its SE, absolute
 LINEAR_RTOL = 1e-4    # gwas_linear vs f64 regressions, relative to max |x|
 QTL_ENRICH = 10.0     # median chi2 over the QTL / median over all SNPs
 GWAS_TOL, GWAS_MAXITER = 1e-2, 300   # absolute CG residual norm (|rhs| ~ 1e2)
 N_QTL = 100           # gblup.simulate_phenotypes' default
+# the variance components of the many_indiv traits (h2 = 0.5; traits 1 and
+# 2 genetically correlated 0.5 in the sample): |estimate - simulated|
+HE_TOL, REML_TOL, RG_TOL, RG_TRUE = 0.15, 0.1, 0.15, 0.5
+CV_MIN_CORR = 0.2     # mean corr(yhat, y) over 5 folds
 LD_WINDOW, LD_R2 = 512, 0.2   # plink --indep-pairwise 512 ... 0.2
 LD_BLOCK = 4096               # ld_windowed's row block: [4096, 4608] products
 # the tall kernel's phase-1 widths: every (mode, width) the main paths
@@ -125,8 +149,17 @@ LD_BLOCK = 4096               # ld_windowed's row block: [4096, 4608] products
 # GBLUP and f64 paths; 12: GBLUP's CG right-hand sides; 18: its PCA sketch;
 # 32: the tiers phase; 33: gwas_mixed_loco's CG, the most launched; the
 # script fails if a main path launches one not checked here) and the
-# bf16/f32 tiers' widest (128)
-TALL_NCOLS = (32, 1, 4, 6, 12, 18, 33, 64, 128)
+# bf16/f32 tiers' widest (128).  The variance-component paths add, as read
+# off the tall histogram of a run: 2 (AI-REML's second solve [G_s P y, P
+# y]; the two-trait G_s Y, multi_trait_gblup's residual solve and BLUP),
+# 8 (multi-trait REML's HE start, max(n_probes, 8) probes), 16 (HE's
+# probes; the bivariate probes, 2 traits x 8), 21 (AI-REML's block with 3
+# covariates: p + 1 + 16), 22 (the bivariate block, t (t p + 1 + 8)) and 52
+# (the 4-trait block, 4 (4 + 1 + 8)); 4, 6, 12, 18 and 32 recur there (the
+# 4-trait Y and probes, multi_trait_gblup's t (t p + 1), the bivariate AI
+# block t t (t + 1), REML's block p + 1 + 16); the 4-trait AI block (80
+# columns) takes the wide kernel
+TALL_NCOLS = (32, 1, 2, 4, 6, 8, 12, 16, 18, 21, 22, 33, 52, 64, 128)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 and
 # int8 tensor cores, and HBM; a kernel's bound is the larger of ops/peak
@@ -230,6 +263,31 @@ def median_chi2_ratio(chi2, qtl) -> float:
     import numpy as np
 
     return float(np.median(chi2[qtl]) / np.median(chi2))
+
+
+def more_traits(geno, bv, simulate_phenotypes):
+    """Traits 2-4 beside ``simulate_phenotypes(geno, h2=0.5, n_qtl=N_QTL,
+    seed=SEED)``'s (whose breeding values are ``bv``), and the animals
+    whose trait 2 the multi-trait GBLUP treats as missing (10%).  Trait 2's
+    genetic values come from the same QTL and correlate RG_TRUE with
+    ``bv`` in the sample (a second effect vector, its part along ``bv``
+    removed); traits 3 and 4 are independent; all have h2 = 0.5.
+    Returns (bv2, y2, y3, y4, missing animals)."""
+    import numpy as np
+
+    qtl = np.random.default_rng(SEED).choice(geno.shape[1], size=N_QTL,
+                                             replace=False)
+    vrng = np.random.default_rng(SEED + 9)
+    zq = np.where(geno[:, qtl] == 3, 0, geno[:, qtl]).astype(np.float64)
+    other = (zq - zq.mean(0)) @ vrng.standard_normal(N_QTL)
+    other -= bv * (other @ bv) / (bv @ bv)
+    bv2 = RG_TRUE * bv + np.sqrt(1.0 - RG_TRUE ** 2) * other / other.std()
+    y2 = bv2 + vrng.standard_normal(geno.shape[0])
+    y3, _ = simulate_phenotypes(geno, h2=0.5, n_qtl=N_QTL, seed=SEED + 3)
+    y4, _ = simulate_phenotypes(geno, h2=0.5, n_qtl=N_QTL, seed=SEED + 4)
+    gone = np.random.default_rng(SEED + 10).choice(
+        geno.shape[0], size=geno.shape[0] // 10, replace=False)
+    return bv2, y2, y3, y4, gone
 
 
 def main() -> int:
@@ -395,6 +453,9 @@ def main() -> int:
         return {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                 "library_ms": lms}
 
+    # the .bed/.bim pair outlives phases 0-1's directory: run_gblup reads it
+    # (with phenotypes in its .fam) after the GBLUP phases
+    fileset = tempfile.TemporaryDirectory()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "panel.bed")
         native.reset_call_counts()
@@ -560,6 +621,9 @@ def main() -> int:
             ("wide_dgemm_bf16", "n", 65, dict(single_bf16=True)),
             ("wide_dgemm_hilo", "n", 32, dict()),
             ("wide_dgemm_split", "t", 65, dict()),
+            # the 4-trait REML's AI block, t t (t + 1) = 80 columns
+            ("wide_dgemm_split", "n", 80, dict()),
+            ("wide_dgemm_split", "t", 80, dict()),
             ("wide_dgemm_f32", "t", 130, dict(split=False)),
             ("wide_dgemm_bf16", "t", 130, dict(single_bf16=True)),
             # checked, not timed: a positive B whose sums grow without
@@ -897,6 +961,9 @@ def main() -> int:
         native.reset_call_counts()
         gm, secs = sync_time(lambda: from_bed(path))   # the default device
         check(gm.device.type == "cuda", "from_bed did not default to the card")
+        bed_path = os.path.join(fileset.name, "panel.bed")
+        for ext in (".bed", ".bim"):
+            os.replace(path[:-4] + ext, bed_path[:-4] + ext)
     log(f"phase main from_bed: {secs:.3f} s (native codec: {codec_calls()})")
     check(native.CALLS["bed_ingest"] == 1,
           "the main from_bed did not take the fused native ingestion")
@@ -935,6 +1002,121 @@ def main() -> int:
                         _kernels.LAUNCHES.items() if v - before[k]}
         log(f"phase main {name}: {secs:.3f} s launches={per_fn[name]}")
         return out
+
+    # -- 2a. the rest of gblup.py, counted: HE and AI-REML heritability,
+    # cross-validation, bivariate and 4-trait REML, multi-trait GBLUP,
+    # GBLUP from a formed GRM and run_gblup on the .bed fileset ---------------
+    grng = np.random.default_rng(SEED + 2)
+    cov = grng.standard_normal((N_INDIV, 3))     # GWAS's covariates too
+    t0 = time.perf_counter()
+    bv2, y2, y3, y4, gone = more_traits(geno, bv, gblup.simulate_phenotypes)
+    log(f"phase traits 2-4 simulated (host): {time.perf_counter() - t0:.3f} s;"
+        f" corr(bv, bv2) = {np.corrcoef(bv, bv2)[0, 1]:.6f}")
+    _kernels.reset_launch_counts()
+    h2_he, _ = counted("estimate_h2_he", lambda: gblup.estimate_h2_he(gm, y))
+    log(f"  estimate_h2_he: h2={h2_he:.4f}")
+    check(np.isfinite(h2_he) and abs(h2_he - 0.5) <= HE_TOL,
+          f"estimate_h2_he: h2 {h2_he:.4f} not within {HE_TOL} of 0.5")
+    for label, kw in (("estimate_h2_reml", {}),
+                      ("estimate_h2_reml covariates", dict(covariates=cov))):
+        h2r, det = counted(label, lambda: gblup.estimate_h2_reml(gm, y, **kw))
+        log(f"  {label}: h2={h2r:.4f} se_h2={det['se_h2']:.4f} AI steps "
+            f"{det['iterations']} cg_iterations={det['cg_iterations']} "
+            f"converged={det['converged']}")
+        check(det["converged"], f"{label} did not converge")
+        check(abs(h2r - 0.5) <= REML_TOL and np.isfinite(det["se_h2"])
+              and det["se_h2"] > 0,
+              f"{label}: h2 {h2r:.4f} (se {det['se_h2']}) not within "
+              f"{REML_TOL} of 0.5")
+    cors, mean_cor = counted("cross_validate k=5",
+                             lambda: gblup.cross_validate(gm, y, k=5))
+    # one matvec (two centered tall launches) per CG iteration, plus each
+    # fold's initial residual and its prediction
+    cv_iters = per_fn["cross_validate k=5"].get("tall_dgemm_cv", 0) // 2 - 10
+    log(f"  cross_validate: fold correlations {np.round(cors, 4)}, mean "
+        f"{mean_cor:.4f}, cg_iterations={cv_iters}")
+    check(np.isfinite(cors).all() and mean_cor >= CV_MIN_CORR,
+          f"cross_validate: mean correlation {mean_cor:.4f} < {CV_MIN_CORR}")
+    rg, db = counted("estimate_bivar_reml",
+                     lambda: gblup.estimate_bivar_reml(gm, y, y2))
+    log(f"  estimate_bivar_reml: rg={rg:.4f} (se {db['se_rg']:.4f}) h2 "
+        f"{db['h2_1']:.4f} / {db['h2_2']:.4f} AI steps {db['iterations']} "
+        f"cg_iterations={db['cg_iterations']} converged={db['converged']}")
+    check(db["converged"], "estimate_bivar_reml did not converge")
+    check(abs(db["h2_1"] - 0.5) <= REML_TOL
+          and abs(db["h2_2"] - 0.5) <= REML_TOL,
+          f"estimate_bivar_reml: h2 {db['h2_1']:.4f} / {db['h2_2']:.4f} not "
+          f"within {REML_TOL} of 0.5")
+    check(abs(rg - RG_TRUE) <= RG_TOL,
+          f"estimate_bivar_reml: rg {rg:.4f} not within {RG_TOL} of {RG_TRUE}")
+    ys4 = np.stack([y, y2, y3, y4], axis=1)
+    _, _, dm = counted("estimate_multi_reml t=4",
+                       lambda: gblup.estimate_multi_reml(gm, ys4))
+    log(f"  estimate_multi_reml t=4: h2 {np.round(dm['h2'], 4)} rg(1, 2) "
+        f"{dm['rg'][0, 1]:.4f} AI steps {dm['iterations']} cg_iterations="
+        f"{dm['cg_iterations']} converged={dm['converged']}")
+    check(dm["converged"], "estimate_multi_reml t=4 did not converge")
+    check(per_fn["estimate_multi_reml t=4"].get("wide_dgemm_split", 0) > 0,
+          "estimate_multi_reml t=4 did not launch the wide split kernel")
+    # multi-trait GBLUP with the bivariate REML's components on y's scale,
+    # trait 2 missing on 10% of the animals
+    sd = np.array([y.std(), y2.std()])
+    su = np.array([[db["g11"], db["g12"]], [db["g12"], db["g22"]]])
+    se = np.array([[db["e11"], db["e12"]], [db["e12"], db["e22"]]])
+    ymt = np.stack([y, y2], axis=1)
+    ymt[gone, 1] = np.nan
+    mtr = counted("multi_trait_gblup t=2", lambda: gblup.multi_trait_gblup(
+        gm, ymt, su * np.outer(sd, sd), se * np.outer(sd, sd)))
+    acc = [float(np.corrcoef(mtr.g_hat[:, 0], bv)[0, 1]),
+           float(np.corrcoef(mtr.g_hat[:, 1], bv2)[0, 1])]
+    acc_gone = float(np.corrcoef(mtr.g_hat[gone, 1], bv2[gone])[0, 1])
+    log(f"  multi_trait_gblup: corr(g_hat, bv) {acc[0]:.4f} / {acc[1]:.4f}, "
+        f"on trait 2's missing cells {acc_gone:.4f}; cg_iterations="
+        f"{mtr.cg_iterations}")
+    check(mtr.g_hat.shape == (N_INDIV, 2) and bool(np.isfinite(
+        mtr.g_hat).all()), "multi_trait_gblup: g_hat malformed or not finite")
+    check(min(acc) >= MIN_BV_CORR,
+          f"multi_trait_gblup: corr(g_hat, bv) {acc} < {MIN_BV_CORR}")
+    g_s = counted("grm scale=True", lambda: grm(gm, scale=True))
+    fg = counted("gblup_from_grm", lambda: gblup.gblup_from_grm(g_s, y))
+    del g_s
+    torch.cuda.empty_cache()
+    fp = counted("gblup n_pcs=0 tol=1e-6",
+                 lambda: gblup.gblup(gm, y, h2=0.5, n_pcs=0, tol=1e-6))
+    rel = float(np.abs(fg.fitted - fp.fitted).max() / np.abs(fp.fitted).max())
+    log(f"  gblup_from_grm: cg_iterations={fg.cg_iterations} converged="
+        f"{fg.converged}; fitted vs gblup(n_pcs=0) rel={rel:.3g} (its "
+        f"cg_iterations={fp.cg_iterations})")
+    check(fg.converged and fp.converged, "gblup_from_grm or gblup n_pcs=0 "
+          "did not converge")
+    check(rel <= 1e-3, "gblup_from_grm disagrees with gblup(n_pcs=0)")
+    with open(bed_path[:-4] + ".fam", "w") as fh:
+        fh.writelines(f"F{i} I{i} 0 0 0 {v:.9g}\n" for i, v in enumerate(y))
+    effects = bed_path[:-4] + ".effects"
+    printed = io.StringIO()
+
+    def run_pipeline():
+        with contextlib.redirect_stdout(printed):
+            return gblup.run_gblup(bed_path, estimate_h2=True,
+                                   h2_method="reml", effects_out=effects)
+
+    rc = counted("run_gblup", run_pipeline)
+    for ln in printed.getvalue().splitlines():
+        log(f"  run_gblup: {ln}")
+    with open(effects) as fh:
+        rows = sum(1 for _ in fh) - 1
+    cor_fit = [float(ln.split("=")[1]) for ln in
+               printed.getvalue().splitlines() if ln.startswith("cor(fitted")]
+    check(rc == 0 and rows == N_SNPS and len(cor_fit) == 1
+          and cor_fit[0] >= MIN_BV_CORR,
+          f"run_gblup: rc {rc}, {rows} effect rows, printed cor(fitted, "
+          f"phenotype) {cor_fit}")
+    fileset.cleanup()
+    counts = take_counts("variance components")
+    check(all(counts[k] > 0 for k in ("tall_dgemm", "tall_dgemm_cv",
+                                      "crossprod", "wide_dgemm_split")),
+          "a kernel of the variance-component paths was never launched")
+    del y2, y3, y4, ys4, ymt, mtr, fg, fp
 
     # -- 2b. the f64 tier, counted: refined and dense GBLUP, f64 dgemm ------
     frng = np.random.default_rng(SEED + 7)
@@ -1013,8 +1195,6 @@ def main() -> int:
     # -- 3. the main GWAS path, counted ------------------------------------
     qtl = np.random.default_rng(SEED).choice(N_SNPS, size=N_QTL,
                                              replace=False)
-    grng = np.random.default_rng(SEED + 2)
-    cov = grng.standard_normal((N_INDIV, 3))
     yb = (y > np.median(y)).astype(np.float64)
     chrom = np.repeat(np.arange(4), N_SNPS // 4)
 
@@ -1328,9 +1508,33 @@ def main() -> int:
     s_csr = (srng.random((50, 600)) < 0.05) * srng.standard_normal((50, 600))
     s_args = (np.concatenate([[0], np.cumsum((s_csr != 0).sum(axis=1))]) + 1,
               np.nonzero(s_csr)[1] + 1, s_csr[s_csr != 0], 50)
-    fits = {}
+    # the rest of gblup.py: a second trait sharing half of the first's
+    # genetic values, missing on every 10th animal for multi_trait_gblup;
+    # run_gblup on the small panel's fileset with -9 phenotypes (the
+    # simulation branch), its marker effects compared
+    ys2 = 0.5 * ys + gblup.simulate_phenotypes(small, h2=0.5,
+                                               seed=SEED + 2)[0]
+    ys12 = np.stack([ys, ys2], axis=1)
+    ysm = ys12.copy()
+    ysm[::10, 1] = np.nan
+    s_su, s_se = np.array([[0.5, 0.2], [0.2, 0.6]]), np.eye(2) * 0.5
+    small_set = tempfile.TemporaryDirectory()
+    small_bed = os.path.join(small_set.name, "small.bed")
+    bed.write_bed(small_bed, small)
+    fits, scalars = {}, {}
+    t0 = time.perf_counter()
     for d in ("cpu", dev):
         gs = from_dense(small, device=d)
+        he, _ = gblup.estimate_h2_he(gs, ys)
+        h2x, dx = gblup.estimate_h2_reml(gs, ys, probes=np.eye(600))
+        cv_cors, _ = gblup.cross_validate(gs, ys, k=5)
+        sg_d, se_d, _ = gblup.estimate_multi_reml(gs, ys12)
+        sg_h, se_h, _ = gblup.estimate_multi_reml(gs, ys12, device_cg=False)
+        eff = os.path.join(small_set.name, f"effects_{d}.txt")
+        with contextlib.redirect_stdout(io.StringIO()):
+            gblup.run_gblup(small_bed, pcs=3, effects_out=eff, device=d)
+        scalars[str(d)] = {"h2 he": he, "h2 reml exact": h2x,
+                           "se_h2 reml exact": dx["se_h2"]}
         fits[str(d)] = {
             "fitted": gblup.gblup(gs, ys, h2=0.5, n_pcs=3, tol=1e-5).fitted,
             "fitted refined": gblup.gblup(gs, ys, h2=0.5, n_pcs=3,
@@ -1349,17 +1553,32 @@ def main() -> int:
             "logistic": gwas_logistic(gs, ysb, covariates=covs).t,
             "mixed": gwas_mixed(gs, ys, covariates=covs, tol=1e-4).chi2,
             "loco": gwas_mixed_loco(gs, ys, chroms, covariates=covs,
-                                    tol=1e-4).chi2}
+                                    tol=1e-4).chi2,
+            "cross_validate": cv_cors,
+            "multi_reml Sg device_cg": sg_d, "multi_reml Se device_cg": se_d,
+            "multi_reml Sg host": sg_h, "multi_reml Se host": se_h,
+            "multi_trait_gblup": gblup.multi_trait_gblup(
+                gs, ysm, s_su, s_se).g_hat,
+            "gblup_from_grm": gblup.gblup_from_grm(
+                grm(gs, scale=True), ys).fitted,
+            "run_gblup effects": np.loadtxt(eff, skiprows=1, usecols=2)}
+    small_set.cleanup()
     fc, fg = fits["cpu"], fits[str(dev)]
     err_grm = float(np.abs(fg["grm"] - fc["grm"]).max())
     rels = {k: float(np.abs(fg[k] - fc[k]).max() / np.abs(fc[k]).max())
             for k in fc if k != "grm"}
-    log(f"check small panel GPU vs CPU: grm max_abs={err_grm:.3g} "
-        + " ".join(f"{k} rel={v:.3g}" for k, v in rels.items()))
+    errs = {k: abs(scalars[str(dev)][k] - v)
+            for k, v in scalars["cpu"].items()}
+    log(f"check small panel GPU vs CPU ({time.perf_counter() - t0:.3f} s): "
+        f"grm max_abs={err_grm:.3g} "
+        + " ".join(f"{k} rel={v:.3g}" for k, v in rels.items()) + " "
+        + " ".join(f"{k} abs={v:.3g}" for k, v in errs.items()))
     check(err_grm <= 1e-5 and all(
         v <= (F64_RTOL if "f64" in k else SMALL_RTOL)
         for k, v in rels.items()),
           "GPU pipeline disagrees with the CPU path on the small panel")
+    check(all(v <= SMALL_ATOL for v in errs.values()),
+          "h2 estimates disagree between the GPU and the CPU paths")
 
     # the LD and GRM families on a panel with 2% missing genotypes and a
     # duplicate of every 50th SNP, tracked (the corrected LD paths) and not

@@ -6,7 +6,9 @@ tiers), the exact integer GRM crossproduct, sparse x genotype products, CG
 solves with float64 refinement, dense solvers, GBLUP, the GWAS scans, the
 LD family (full, banded, scores, pruning, out of core) and the GRM family
 (GCTA, dominance, out of core), all with exact missing-genotype
-corrections.  The packed products run in hand-written CUDA kernels
+corrections, and the variance components that feed GBLUP (HE, AI-REML,
+bivariate and multi-trait REML), cross-validation and multi-trait GBLUP.
+The packed products run in hand-written CUDA kernels
 (``csrc/``, built at first use by ``_kernels``); on CPU tensors every op
 takes the plain torch version of its kernel.  Panels go to the CUDA card
 unless the caller names another device.  Imports torch and numpy (and scipy
@@ -17,6 +19,9 @@ jax.
 # miraculix_tpu_torch.gblup.gblup (re-exporting it would shadow the module)
 from .geno import (GenoMatrix, from_bed, from_dense, from_plink,
                    from_reference_state, load, save, subset_snps)
+from .gblup import (MTGBLUPResult, cross_validate, estimate_bivar_reml,
+                    estimate_h2_he, estimate_h2_reml, estimate_multi_reml,
+                    gblup_from_grm, multi_trait_gblup, run_gblup)
 from .gwas import (GWASResult, MixedGWASResult, gwas_linear, gwas_logistic,
                    gwas_mixed, gwas_mixed_loco)
 from .ops.dgemm import (dgemm, packed_matmul, packed_matmul_exact,
@@ -40,17 +45,24 @@ __all__ = [
     "DenseSolveResult",
     "GWASResult",
     "GenoMatrix",
+    "MTGBLUPResult",
     "MixedGWASResult",
     "RelMatResult",
     "cg",
     "chol2inv",
+    "cross_validate",
     "dense_solve",
     "dgemm",
     "dominance_grm",
+    "estimate_bivar_reml",
+    "estimate_h2_he",
+    "estimate_h2_reml",
+    "estimate_multi_reml",
     "from_bed",
     "from_dense",
     "from_plink",
     "from_reference_state",
+    "gblup_from_grm",
     "grm",
     "grm_blocked",
     "grm_cg_solve",
@@ -70,6 +82,7 @@ __all__ = [
     "ld_score",
     "ld_windowed",
     "load",
+    "multi_trait_gblup",
     "packed_crossprod",
     "packed_crossprod_rect",
     "packed_matmul",
@@ -78,6 +91,7 @@ __all__ = [
     "packed_matmul_int8",
     "packed_matmul_tall",
     "pairwise_nonmissing",
+    "run_gblup",
     "save",
     "snp_crossprod",
     "solve_posdef",
