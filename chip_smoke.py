@@ -90,11 +90,39 @@ codec of ``miraculix_tpu_torch/io/native`` and
    ``grm_yang()`` and ``ld()`` on the first chromosome, rows 0-255 against
    their float64 mean-imputed definitions (1e-4 of max |want|), the LD
    diagonal 1 within 1e-6; the host D D^T and the segment sum timed apart;
-7. checks the GPU pipeline against the port's CPU path on small panels
+7. runs the sparse solver and single-step GBLUP at the sizes of the
+   reference benchmark's cells, each from the counters' zero: "main sparse
+   solve" (``benchmark.py`` "sparse_solve": a simulated pedigree-shaped
+   factor, n = 1,000,000, ~9 off-diagonal entries a row within n/16 of the
+   diagonal, a float32 ``SparseTriangularSolver`` at bs 512 with its
+   device analysis; ``solve_lltx`` on 12 columns timed warm, its relative
+   residual at refine 0 and 1 (1 must be lower), ``solve_lltx_f64`` to
+   1e-12, ||T X - I|| / (||T|| ||X||) <= 1e-4 on 64 inverted diagonal
+   blocks beside the float64 inverse rounded to float32, the peak device
+   memory) and "main ssgblup" (``benchmark.py`` "ssgblup": 200,000
+   pedigree animals, the youngest 20,000 genotyped at 65,536 SNPs,
+   phenotypes on the other 180,000, classical rules, h2 0.4, tol 1e-5:
+   converged before 500 outer iterations, every u finite; set-up, first
+   and warm solve timed, the tall launches by width); then native
+   ``inbreeding`` on 20,000 animals (the first 1,000 against the Python
+   oracle within 1e-12, counted in ``native.CALLS``); a dense float64
+   oracle on the card at 8,192 animals, 2,048 of them genotyped (rows of
+   the many_indiv panel): ``SingleStepHInv.matvec`` within 2e-4 and
+   ``ssgblup``'s beta and u within 5e-3 of the dense H^-1 and MME solve;
+   and ``run_ssgblup(estimate_h2=True, no_inbreeding=True)`` on the
+   many_indiv fileset with a 32,768-animal pedigree whose youngest 16,384
+   are the panel's animals (exit 0, an EBV for every animal, single-step
+   REML h2 within 0.1 of 0.5, corr(u, BV) >= 0.7 on the genotyped);
+8. checks the GPU pipeline against the port's CPU path on small panels
    (GBLUP cg/refined/dense, GRM, the four scans, ``sparse_times_geno``, HE,
    exact-probe AI-REML, ``cross_validate``, two-trait REML with the device
    and the host V-solve, ``multi_trait_gblup``, ``gblup_from_grm`` and
-   ``run_gblup``'s marker effects on simulated phenotypes; the f64 dgemm,
+   ``run_gblup``'s marker effects on simulated phenotypes; the sparse
+   solver at n = 5,000 and bs 300 in both triangles, orientations and
+   precisions, with a permutation and to float64 grade, ``SparseCOO``,
+   ``SingleStepHInv.matvec`` and ``ssgblup`` on a 2,000-animal pedigree
+   over the 600 x 5,000 panel and exact-probe single-step REML on a
+   120-animal one; the f64 dgemm,
    the LD and GRM families with and without the missing corrections on a
    panel with 2% missing genotypes), at 1e-3 (h2 and its SE: absolute), or
    1e-12 for the f64 tier.
@@ -159,7 +187,23 @@ LD_BLOCK = 4096               # ld_windowed's row block: [4096, 4608] products
 # 4-trait Y and probes, multi_trait_gblup's t (t p + 1), the bivariate AI
 # block t t (t + 1), REML's block p + 1 + 16); the 4-trait AI block (80
 # columns) takes the wide kernel
-TALL_NCOLS = (32, 1, 2, 4, 6, 8, 12, 16, 18, 21, 22, 33, 52, 64, 128)
+TALL_NCOLS = (32, 1, 2, 4, 6, 8, 9, 12, 16, 18, 21, 22, 33, 52, 64, 128)
+# phase 7: the sparse solve of benchmark.py's "sparse_solve" cell (n, RHS
+# columns; a float32 solver at bs 512) and its limit on ||T X - I|| /
+# (||T|| ||X||) over 64 inverted diagonal blocks; the single-step cells:
+# benchmark.py's "ssgblup" (animals, genotyped; phenotypes on the rest),
+# the dense-oracle check (animals, genotyped rows of many_indiv) with its
+# outer CG tolerance, and run_ssgblup's pedigree (its youngest 16,384 are
+# the panel's animals; 32,768 animals, as 65,536 took the phase 70 s on an
+# H100 80GB HBM3 at 700 W)
+SPARSE_N, SPARSE_NCOL, SPARSE_TX_RTOL = 1_000_000, 12, 1e-4
+SS_CELL, SS_MAXITER = (200_000, 20_000), 500
+SS_ORACLE, SS_ORACLE_TOL = (8192, 2048), 1e-6
+SS_PIPELINE = 32_768
+# phase 8's single-step REML with exact probes (animals, genotyped rows and
+# SNPs of the small panel): its CPU side runs the plain dgemm in every inner
+# CG iteration, so the cell is the reference tests' (tests/test_ssgblup.py)
+SS_SMALL_REML = (120, 48, 600)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 and
 # int8 tensor cores, and HBM; a kernel's bound is the larger of ops/peak
@@ -288,6 +332,391 @@ def more_traits(geno, bv, simulate_phenotypes):
     gone = np.random.default_rng(SEED + 10).choice(
         geno.shape[0], size=geno.shape[0] // 10, replace=False)
     return bv2, y2, y3, y4, gone
+
+
+def pedigree_bv(sire, dam, var, rng):
+    """Breeding values with variance ``var`` drawn down a pedigree: the
+    parents' mean plus Mendelian sampling (var/2 with both parents known,
+    3 var/4 with one, var for founders; inbreeding ignored)."""
+    import numpy as np
+
+    u = np.zeros(len(sire) + 1)
+    for i in range(1, len(sire) + 1):
+        s, d = sire[i - 1], dam[i - 1]
+        known = int(s > 0) + int(d > 0)
+        u[i] = (0.5 * (u[s] + u[d]) + np.sqrt(var * (1.0 - 0.25 * known))
+                * rng.standard_normal())
+    return u[1:]
+
+
+def device_busy(label, fn):
+    """One call of ``fn`` under torch.profiler: its wall seconds (with the
+    profiler's own cost), the union of its device events' intervals, the
+    idle share and the device events by name (the top 4)."""
+    import numpy as np
+    import torch
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -np.inf
+    for a, b in spans:          # union of the events' intervals, in us
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted((e for e in prof.key_averages() if e.device_time_total > 0),
+                 key=lambda e: -e.device_time_total)[:4]
+    log(f"profiled {label}: wall {wall:.4f} s, device busy "
+        f"{busy / 1e6:.4f} s over {len(spans)} device events, idle share "
+        f"{1 - busy / 1e6 / wall:.3f}; "
+        + "; ".join(f"{e.key[:48]} {e.device_time_total / 1e3:.3f} ms "
+                    f"x{e.count}" for e in top))
+
+
+def single_step(dev, sync_time, take_counts, oracle_rows, bed_path, bv):
+    """Phase 7: the sparse solver and single-step GBLUP at the reference
+    benchmark's sizes, then native inbreeding, the dense-oracle check and
+    the ``run_ssgblup`` pipeline with single-step REML, each counted."""
+    import numpy as np
+    import torch
+
+    from miraculix_tpu_torch import _kernels, from_dense, grm, pedigree
+    from miraculix_tpu_torch import ssgblup as ssg
+    from miraculix_tpu_torch.io import bed, native
+    from miraculix_tpu_torch.solve.sparse import (SparseTriangularSolver,
+                                                  simulate_pedigree_factor)
+
+    # -- 7a. the sparse triangular solve (benchmark.py "sparse_solve") ------
+    t_phase = time.perf_counter()
+    n = SPARSE_N
+    t0 = time.perf_counter()
+    r, c, v = simulate_pedigree_factor(n, avg_offdiag=9, bandwidth=n // 16,
+                                       seed=0)
+    log(f"phase pedigree factor simulated (host): "
+        f"{time.perf_counter() - t0:.3f} s, nnz {len(v)}")
+    _kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    slv, secs = sync_time(lambda: SparseTriangularSolver(
+        r, c, v, n, dtype=torch.float32))
+    log(f"phase main sparse solve analysis: {secs:.3f} s (n {n}, nnz "
+        f"{slv.nnz}, bs {slv.bs}, {slv.nb} blocks, device inversion); "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+        f" GiB")
+    b = np.random.default_rng(0).standard_normal((n, SPARSE_NCOL))
+    bt = torch.as_tensor(b, dtype=torch.float32, device=dev)
+    ln, lt = slv._host_csr("n"), slv._host_csr("t")
+
+    def rel_residual(x):
+        x = x.cpu().numpy().astype(np.float64) if torch.is_tensor(x) else x
+        return float(np.linalg.norm(b - ln @ (lt @ x)) / np.linalg.norm(b))
+
+    x0, secs = sync_time(lambda: slv.solve_lltx(bt))
+    warm = [sync_time(lambda: slv.solve_lltx(bt))[1] for _ in range(3)]
+    per = float(np.median(warm))
+    x1, secs1 = sync_time(lambda: slv.solve_lltx(bt, refine=1))
+    rel0, rel1 = rel_residual(x0), rel_residual(x1)
+    log(f"phase main sparse solve_lltx ({SPARSE_NCOL} columns, f32): first "
+        f"{secs:.3f} s, warm {', '.join(f'{t:.4f}' for t in warm)} s, "
+        f"median {per:.4f} s = {2 * slv.nnz * SPARSE_NCOL / per:.4g} nnz/s;"
+        f" refine=1 {secs1:.3f} s; rel residual refine=0 {rel0:.3g}, "
+        f"refine=1 {rel1:.3g}")
+    device_busy("sparse solve_lltx", lambda: slv.solve_lltx(bt))
+    (x64, rel64), secs = sync_time(lambda: slv.solve_lltx_f64(b, tol=1e-12))
+    check64 = rel_residual(x64)
+    log(f"phase main sparse solve_lltx_f64(tol=1e-12): {secs:.3f} s, rel "
+        f"residual {rel64:.3g} (recomputed {check64:.3g})")
+    check(max(rel64, check64) <= 1e-12,
+          "solve_lltx_f64 did not reach 1e-12")
+    check(rel1 < rel0, "refine=1 did not lower the f32 residual")
+    # T_i X_i - I on 64 diagonal blocks, beside the float64 inverse rounded
+    # to float32 (the storage floor)
+    pick = np.linspace(0, slv.nb - 1, 64).astype(np.int64)
+    bs = slv.bs
+    r0, c0 = r - 1, c - 1
+    blk = r0 // bs
+    on = (blk == c0 // bs) & np.isin(blk, pick)
+    tb = np.zeros((slv.nb, bs, bs))
+    np.add.at(tb, (blk[on], r0[on] % bs, c0[on] % bs), v[on])
+    pad = np.arange(n, slv.npad)
+    tb[pad // bs, pad % bs, pad % bs] = 1.0
+    tb = torch.as_tensor(tb[pick], device=dev)
+    xb = slv._dinv[torch.as_tensor(pick, device=dev)].double()
+    eye = torch.eye(bs, dtype=torch.float64, device=dev)
+
+    def tx_rel(x):
+        num = torch.linalg.norm(tb @ x - eye, dim=(1, 2))
+        return float((num / (torch.linalg.norm(tb, dim=(1, 2))
+                             * torch.linalg.norm(x, dim=(1, 2)))).max())
+
+    dev_rel = tx_rel(xb)
+    floor_rel = tx_rel(torch.linalg.inv(tb).float().double())
+    log(f"check sparse analysis on 64 diagonal blocks: max ||T X - I|| / "
+        f"(||T|| ||X||) device {dev_rel:.3g}, float64 inverse rounded to "
+        f"float32 {floor_rel:.3g} (limit {SPARSE_TX_RTOL:g})")
+    check(dev_rel <= SPARSE_TX_RTOL, "the device analysis' inverted blocks "
+          "are off the float32 storage floor")
+    take_counts("sparse solve")
+    slv.free()
+    del slv, r, c, v, b, bt, x0, x1, x64, tb, xb, ln, lt
+    torch.cuda.empty_cache()
+
+    # -- 7b. single-step GBLUP (benchmark.py "ssgblup") --------------------
+    n_anim, n_geno = SS_CELL
+    t0 = time.perf_counter()
+    sire, dam = pedigree.simulate_pedigree(n_anim, n_founders=n_anim // 100,
+                                           seed=3)
+    t_ped = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gsim = bed.simulate_genotypes(n_geno, N_SNPS, seed=11)
+    t_sim = time.perf_counter() - t0
+    gss, secs = sync_time(lambda: from_dense(gsim))
+    del gsim
+    log(f"phase single-step cell (host): simulate_pedigree({n_anim}) "
+        f"{t_ped:.3f} s, simulate_genotypes({n_geno}, {N_SNPS}) "
+        f"{t_sim:.3f} s, from_dense {secs:.3f} s")
+    geno_ids = np.arange(n_anim - n_geno, n_anim) + 1
+    obs_ids = np.arange(1, n_anim - n_geno + 1)
+    y = 2.0 + np.random.default_rng(1).standard_normal(len(obs_ids))
+    _kernels.reset_launch_counts()
+    hinv, secs = sync_time(lambda: ssg.SingleStepHInv(
+        sire, dam, gss, geno_ids, blend=0.05, f=np.zeros(n_anim)))
+    log(f"phase main SingleStepHInv set-up: {secs:.3f} s (A^-1 nnz "
+        f"{hinv.ainv.nnz})")
+
+    def solve():
+        return ssg.ssgblup(y, hinv, obs_ids=obs_ids, h2=0.4, tol=1e-5,
+                           maxiter=SS_MAXITER)
+
+    res, secs_first = sync_time(solve)
+    before = collections.Counter(_kernels.TALL_WIDTHS)
+    res, secs = sync_time(solve)
+    widths = collections.Counter(_kernels.TALL_WIDTHS) - before
+    log(f"phase main ssgblup: first {secs_first:.3f} s, warm {secs:.3f} s, "
+        f"outer CG iterations {res.iterations}, residual "
+        f"{res.residual_norm:.3g}; tall launches over the warm solve by "
+        f"(mode, n): {dict(widths)}")
+    device_busy("ssgblup", solve)
+    take_counts("ssgblup")
+    check(res.iterations < SS_MAXITER and bool(np.isfinite(res.u).all())
+          and res.u.shape == (n_anim,),
+          "ssgblup did not converge or gave non-finite values")
+    del hinv, gss, res
+    torch.cuda.empty_cache()
+
+    # -- 7c. native inbreeding against its oracle ---------------------------
+    _kernels.reset_launch_counts()
+    sire, dam = pedigree.simulate_pedigree(20_000, n_founders=200, seed=3)
+    native.reset_call_counts()
+    t0 = time.perf_counter()
+    f = pedigree.inbreeding(sire, dam)
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f_py = pedigree._inbreeding_py(sire[:1000], dam[:1000])
+    secs_py = time.perf_counter() - t0
+    err = float(np.abs(f[:1000] - f_py).max())
+    log(f"phase inbreeding (native, 20,000 animals): {secs:.3f} s, mean F "
+        f"{f.mean():.4f}, max {f.max():.4f}; the Python oracle on the first "
+        f"1,000: {secs_py:.3f} s, max_abs_err {err:.3g}; native calls "
+        f"{native.CALLS['inbreeding']}")
+    check(native.CALLS["inbreeding"] == 1, "inbreeding did not run natively")
+    check(err <= 1e-12, "native inbreeding disagrees with its oracle")
+
+    # -- 7d. the dense-oracle check -----------------------------------------
+    n_anim, n_geno = SS_ORACLE
+    t0 = time.perf_counter()
+    orng = np.random.default_rng(SEED + 9)
+    sire, dam = pedigree.simulate_pedigree(n_anim, n_founders=n_anim // 100,
+                                           seed=4)
+    geno_ids = np.sort(orng.choice(n_anim, size=n_geno, replace=False)) + 1
+    gor = from_dense(oracle_rows)
+    hinv = ssg.SingleStepHInv(sire, dam, gor, geno_ids, blend=0.05)
+    t_set = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    a = torch.as_tensor(pedigree.a_matrix(sire, dam), device=dev)
+    t_a = time.perf_counter() - t0
+    gi = torch.as_tensor(geno_ids - 1, device=dev)
+    ainv = torch.linalg.inv(a)
+    gw = 0.95 * grm(gor, scale=True).double() + 0.05 * torch.eye(
+        n_geno, dtype=torch.float64, device=dev)
+    blk = torch.linalg.inv(gw) - torch.linalg.inv(a[gi][:, gi])
+    hd = ainv.clone()
+    hd[gi[:, None], gi[None, :]] += blk
+    del a, ainv, gw, blk
+    vv = orng.standard_normal((n_anim, 4))
+    want = hd @ torch.as_tensor(vv, device=dev)
+    got = hinv.matvec(vv).double()
+    rel_mv = float((got - want).abs().max() / want.abs().max())
+    # records on 3/4 of the animals, intercept and a covariate
+    n_obs = 3 * n_anim // 4
+    obs_ids = np.sort(orng.choice(n_anim, size=n_obs, replace=False)) + 1
+    xmat = np.column_stack([np.ones(n_obs), orng.standard_normal(n_obs)])
+    u_true = pedigree_bv(sire, dam, 0.4, orng)
+    y = xmat @ [1.0, 0.5] + u_true[obs_ids - 1] + 0.7 * orng.standard_normal(
+        n_obs)
+    res, secs = sync_time(lambda: ssg.ssgblup(
+        y, hinv, obs_ids=obs_ids, x=xmat, h2=0.4, tol=SS_ORACLE_TOL,
+        maxiter=5000))
+    lam = 0.6 / 0.4
+    ob = torch.as_tensor(obs_ids - 1, device=dev)
+    xd = torch.as_tensor(xmat, device=dev)
+    mme = torch.zeros((2 + n_anim, 2 + n_anim), dtype=torch.float64,
+                      device=dev)
+    mme[:2, :2] = xd.T @ xd
+    xtw = torch.zeros((2, n_anim), dtype=torch.float64,
+                      device=dev).index_add_(1, ob, xd.T)
+    mme[:2, 2:], mme[2:, :2] = xtw, xtw.T
+    mme[2:, 2:] = lam * hd
+    mme[2 + ob, 2 + ob] += 1.0       # W'W: one record an animal
+    yd = torch.as_tensor(y, device=dev)
+    rhs = torch.cat([xd.T @ yd, torch.zeros(n_anim, dtype=torch.float64,
+                                            device=dev).index_add_(0, ob, yd)])
+    z = torch.linalg.solve(mme, rhs).cpu().numpy()
+    err_b = float(np.abs(res.beta - z[:2]).max())
+    rel_u = float(np.abs(res.u - z[2:]).max() / np.abs(z[2:]).max())
+    log(f"check single-step dense oracle ({n_anim} animals, {n_geno} "
+        f"genotyped x {N_SNPS} SNPs; set-up {t_set:.3f} s, tabular A "
+        f"{t_a:.3f} s): hinv.matvec rel={rel_mv:.3g} (limit 2e-4); "
+        f"ssgblup {secs:.3f} s, {res.iterations} outer iterations, beta "
+        f"abs={err_b:.3g}, u rel={rel_u:.3g} (limit 5e-3); corr(u, u_true) "
+        f"{np.corrcoef(res.u, u_true)[0, 1]:.4f}")
+    check(rel_mv <= 2e-4, "hinv.matvec disagrees with the dense H^-1")
+    check(err_b <= 5e-3 and rel_u <= 5e-3,
+          "ssgblup disagrees with the dense MME solve")
+    take_counts("inbreeding and the dense oracle")
+    del hd, want, got, mme, hinv, gor
+    torch.cuda.empty_cache()
+
+    # -- 7e. run_ssgblup with single-step REML on the many_indiv fileset ----
+    n_anim = SS_PIPELINE
+    sire, dam = pedigree.simulate_pedigree(n_anim, n_founders=n_anim // 100,
+                                           seed=SEED + 12)
+    n_geno = len(bv)
+    labels = [f"P{i}" for i in range(n_anim - n_geno)] + [
+        f"I{i}" for i in range(n_geno)]          # the .fam's IIDs
+    ped_path = bed_path[:-4] + ".ped.txt"
+    with open(ped_path, "w") as fh:
+        fh.writelines(f"{lab} {labels[s - 1] if s else 0} "
+                      f"{labels[d - 1] if d else 0}\n"
+                      for lab, s, d in zip(labels, sire, dam))
+    out = bed_path[:-4] + ".ebv.tsv"
+    printed = io.StringIO()
+    det = {}
+    reml = ssg.estimate_h2_reml_ss
+
+    def recording(*args, **kw):   # the REML's details, which run_ssgblup
+        h2, d = reml(*args, **kw)  # only prints in part
+        det.update(d, h2=h2)
+        return h2, d
+
+    _kernels.reset_launch_counts()
+    ssg.estimate_h2_reml_ss = recording
+    try:
+        with contextlib.redirect_stdout(printed):
+            rc, secs = sync_time(lambda: ssg.run_ssgblup(
+                bed_path, ped_path, out=out, estimate_h2=True,
+                no_inbreeding=True))
+    finally:
+        ssg.estimate_h2_reml_ss = reml
+    widths = dict(_kernels.TALL_WIDTHS)
+    for ln in printed.getvalue().splitlines():
+        log(f"  run_ssgblup: {ln}")
+    with open(out) as fh:
+        rows = [ln.split("\t") for ln in fh.read().splitlines()[1:]]
+    ebv = {lab: float(e) for lab, e, _ in rows}
+    u_g = np.array([ebv[f"I{i}"] for i in range(n_geno)])
+    corr = float(np.corrcoef(u_g, bv)[0, 1])
+    log(f"phase main run_ssgblup ({n_anim} animals, {n_geno} genotyped, "
+        f"estimate_h2): {secs:.3f} s, h2 {det.get('h2', float('nan')):.4f} "
+        f"(SE {det.get('se_h2', float('nan')):.4f}), AI steps "
+        f"{det.get('iterations')}, MME CG iterations "
+        f"{det.get('cg_iterations')}, converged {det.get('converged')}; "
+        f"corr(u genotyped, BV) {corr:.4f}; tall launches by (mode, n): "
+        f"{widths}")
+    take_counts("run_ssgblup")
+    check(rc == 0 and len(rows) == n_anim and all(
+        np.isfinite(e) for e in ebv.values()),
+          f"run_ssgblup: rc {rc}, {len(rows)} EBV rows of {n_anim}")
+    check(det.get("converged") and abs(det["h2"] - 0.5) <= REML_TOL,
+          f"single-step REML: h2 {det.get('h2')} not within {REML_TOL} of "
+          f"0.5 or not converged")
+    check(corr >= MIN_BV_CORR, f"run_ssgblup: corr(u, BV) {corr:.4f} < "
+          f"{MIN_BV_CORR}")
+    log(f"phase 7 (sparse solve and single-step) total: "
+        f"{time.perf_counter() - t_phase:.3f} s")
+
+
+def small_single_step(dev, small, seed):
+    """Phase 8's single-step part: the sparse solver (n = 5,000, bs 300:
+    lower and upper, 'n' and 't', float32 and float64, ``solve_lltx`` with a
+    permutation, ``solve_f64``), ``SparseCOO.matvec``,
+    ``SingleStepHInv.matvec`` and ``ssgblup`` on a 2,000-animal pedigree
+    whose youngest 600 are the small panel, and single-step REML on the
+    reduced cell ``SS_SMALL_REML``, on the CPU and on ``dev``.  Returns
+    ({name: (cpu, gpu) arrays}, {name: (cpu, gpu) scalars})."""
+    import numpy as np
+    import torch
+
+    from miraculix_tpu_torch import from_dense, pedigree
+    from miraculix_tpu_torch import ssgblup as ssg
+    from miraculix_tpu_torch.solve.sparse import (SparseTriangularSolver,
+                                                  simulate_pedigree_factor)
+
+    rng = np.random.default_rng(seed)
+    n = 5000
+    r, c, v = simulate_pedigree_factor(n, avg_offdiag=9, seed=seed)
+    b = rng.standard_normal((n, 3))
+    perm = rng.permutation(n) + 1
+    sire, dam = pedigree.simulate_pedigree(2000, n_founders=20, seed=seed)
+    geno_ids = np.arange(1401, 2001)
+    obs_ids = np.sort(rng.choice(2000, size=1500, replace=False)) + 1
+    u = pedigree_bv(sire, dam, 0.5, rng)
+    y = 1.0 + u[obs_ids - 1] + np.sqrt(0.5) * rng.standard_normal(1500)
+    vh = rng.standard_normal((2000, 4))
+    na, ng, ns = SS_SMALL_REML
+    rsire, rdam = pedigree.simulate_pedigree(na, n_founders=na // 8,
+                                             seed=seed + 1)
+    rgeno = np.arange(na - ng, na) + 1
+    ru = pedigree_bv(rsire, rdam, 0.6, rng)
+    ry = 1.5 + ru + np.sqrt(0.4) * rng.standard_normal(na)
+    arrays, scalars = {}, {}
+    for d in ("cpu", dev):
+        out = {}
+        for dt in (torch.float32, torch.float64):
+            tag = str(dt).split(".")[1]
+            for lower in (True, False):
+                slv = SparseTriangularSolver(
+                    r if lower else c, c if lower else r, v, n, bs=300,
+                    lower=lower, dtype=dt, device=d)
+                for trans in ("n", "t"):
+                    out[f"sparse {tag} {'lower' if lower else 'upper'} "
+                        f"{trans}"] = slv.solve(b, trans=trans).cpu().numpy()
+                if lower:
+                    out[f"sparse {tag} solve_lltx perm"] = slv.solve_lltx(
+                        b, perm=perm).cpu().numpy()
+                    out[f"sparse {tag} solve_f64"] = slv.solve_f64(b)[0]
+        ri, ci, vi = pedigree.a_inverse(sire, dam)
+        out["SparseCOO.matvec"] = pedigree.SparseCOO(
+            ri, ci, vi, (2000, 2000), device=d).matvec(vh).cpu().numpy()
+        gs = from_dense(small, device=d)
+        hinv = ssg.SingleStepHInv(sire, dam, gs, geno_ids)
+        out["SingleStepHInv.matvec"] = hinv.matvec(vh).cpu().numpy()
+        res = ssg.ssgblup(y, hinv, obs_ids=obs_ids, h2=0.5)
+        out["ssgblup u"] = res.u
+        gr = from_dense(small[:ng, :ns], device=d)
+        rh = ssg.SingleStepHInv(rsire, rdam, gr, rgeno)
+        h2, det = ssg.estimate_h2_reml_ss(ry, rh, probes=np.eye(na))
+        arrays[str(d)] = out
+        scalars[str(d)] = {"ss-reml h2": h2, "ss-reml se_h2": det["se_h2"],
+                           "ssgblup iterations": res.iterations,
+                           "ss-reml AI steps": det["iterations"]}
+    return arrays, scalars
 
 
 def main() -> int:
@@ -1111,7 +1540,6 @@ def main() -> int:
           and cor_fit[0] >= MIN_BV_CORR,
           f"run_gblup: rc {rc}, {rows} effect rows, printed cor(fitted, "
           f"phenotype) {cor_fit}")
-    fileset.cleanup()
     counts = take_counts("variance components")
     check(all(counts[k] > 0 for k in ("tall_dgemm", "tall_dgemm_cv",
                                       "crossprod", "wide_dgemm_split")),
@@ -1402,6 +1830,8 @@ def main() -> int:
     del gy, gd, lhs, want, gm
     torch.cuda.empty_cache()
 
+    oracle_rows = geno[:SS_ORACLE[1]].copy()   # phase 7's dense-oracle panel
+
     # -- 6b. the missing-aware GRM family, counted -------------------------
     # 0.1% of the calls set missing (a 99.9% call rate, inside what plink
     # --geno/--mind QC keeps): ~1.07M missing coordinates
@@ -1490,6 +1920,10 @@ def main() -> int:
     del var1
     del gt, g1m, geno
     torch.cuda.empty_cache()
+
+    single_step(dev, sync_time, take_counts, oracle_rows, bed_path, bv)
+    fileset.cleanup()
+    del oracle_rows
     missing = [k for k in SOURCES if launches[k] == 0]
     check(not missing, f"never launched on a main path: {missing}")
     log("tall launches on the main paths by (mode, n): "
@@ -1498,7 +1932,7 @@ def main() -> int:
     check(not unchecked, f"tall widths launched on a main path but not "
           f"checked in phase 1: {unchecked}")
 
-    # -- 7. GPU vs CPU path on small panels -------------------------------
+    # -- 8. GPU vs CPU path on small panels -------------------------------
     small = bed.simulate_genotypes(600, 5000, seed=SEED + 1)
     ys, _ = gblup.simulate_phenotypes(small, h2=0.5, seed=SEED + 1)
     ysb = (ys > np.median(ys)).astype(np.float64)
@@ -1579,6 +2013,24 @@ def main() -> int:
           "GPU pipeline disagrees with the CPU path on the small panel")
     check(all(v <= SMALL_ATOL for v in errs.values()),
           "h2 estimates disagree between the GPU and the CPU paths")
+
+    # the sparse solver, the pedigree operator and single-step GBLUP/REML
+    t0 = time.perf_counter()
+    ss_arrays, ss_scalars = small_single_step(dev, small, SEED + 10)
+    fc, fg = ss_arrays["cpu"], ss_arrays[str(dev)]
+    rels = {k: float(np.abs(fg[k] - fc[k]).max() / np.abs(fc[k]).max())
+            for k in fc}
+    sc, sg = ss_scalars["cpu"], ss_scalars[str(dev)]
+    errs = {k: abs(sg[k] - sc[k]) for k in ("ss-reml h2", "ss-reml se_h2")}
+    log(f"check single-step small panels GPU vs CPU "
+        f"({time.perf_counter() - t0:.3f} s): "
+        + " ".join(f"{k} rel={v:.3g}" for k, v in rels.items()) + " "
+        + " ".join(f"{k} abs={v:.3g}" for k, v in errs.items())
+        + f"; CPU {sc}, GPU {sg}")
+    check(all(v <= SMALL_RTOL for v in rels.values())
+          and all(v <= SMALL_ATOL for v in errs.values()),
+          "the sparse solver or single-step GBLUP disagrees between the GPU "
+          "and the CPU paths")
 
     # the LD and GRM families on a panel with 2% missing genotypes and a
     # duplicate of every 50th SNP, tracked (the corrected LD paths) and not

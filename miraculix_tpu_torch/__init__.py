@@ -7,13 +7,15 @@ solves with float64 refinement, dense solvers, GBLUP, the GWAS scans, the
 LD family (full, banded, scores, pruning, out of core) and the GRM family
 (GCTA, dominance, out of core), all with exact missing-genotype
 corrections, and the variance components that feed GBLUP (HE, AI-REML,
-bivariate and multi-trait REML), cross-validation and multi-trait GBLUP.
+bivariate and multi-trait REML), cross-validation and multi-trait GBLUP;
+the sparse triangular solver, the pedigree algebra (inbreeding, A and its
+sparse inverse) and single-step GBLUP with its REML.
 The packed products run in hand-written CUDA kernels
 (``csrc/``, built at first use by ``_kernels``); on CPU tensors every op
 takes the plain torch version of its kernel.  Panels go to the CUDA card
 unless the caller names another device.  Imports torch and numpy (and scipy
-for p-values and the sparse D D^T of the missing corrections) only, never
-jax.
+for p-values, the sparse D D^T of the missing corrections and the sparse
+solver's float64 residuals) only, never jax.
 """
 # NB: as in the reference, the gblup ESTIMATOR stays at
 # miraculix_tpu_torch.gblup.gblup (re-exporting it would shadow the module)
@@ -32,11 +34,14 @@ from .ops.grm import (dominance_grm, grm, grm_blocked, grm_yang, ld,
                       packed_crossprod, packed_crossprod_rect,
                       pairwise_nonmissing, snp_crossprod)
 from .ops.sparse import sparse_times_geno, sparse_times_geno_segsum
+# NB: the ssgblup SOLVER stays at miraculix_tpu_torch.ssgblup.ssgblup too
+from .pedigree import SparseCOO, a_inverse, a_matrix, inbreeding
 from .solve import (CGResult, DenseSolveResult, RelMatResult, chol2inv,
                     dense_solve, grm_cg_solve_refined, grm_matvec_f64,
                     solve_posdef, solve_relmat, sqrt_posdef, sqrt_rhs,
-                    x_cinv_y_logdet)
+                    SparseTriangularSolver, x_cinv_y_logdet)
 from .solve.cg import cg, grm_cg_solve, grm_diag, grm_matvec, jacobi_minv
+from .ssgblup import SingleStepHInv
 
 __version__ = "0.1.0"
 
@@ -48,6 +53,11 @@ __all__ = [
     "MTGBLUPResult",
     "MixedGWASResult",
     "RelMatResult",
+    "SingleStepHInv",
+    "SparseCOO",
+    "SparseTriangularSolver",
+    "a_inverse",
+    "a_matrix",
     "cg",
     "chol2inv",
     "cross_validate",
@@ -75,6 +85,7 @@ __all__ = [
     "gwas_logistic",
     "gwas_mixed",
     "gwas_mixed_loco",
+    "inbreeding",
     "jacobi_minv",
     "ld",
     "ld_blocked",

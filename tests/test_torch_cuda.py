@@ -825,3 +825,92 @@ def test_dense_solvers_put_arrays_on_the_card(dev):
         assert got.is_cuda and got.dtype == torch.float64
         assert float((got.cpu() - want).abs().max()) <= 1e-10 * float(
             want.abs().max())
+
+
+@pytest.mark.parametrize("bs,lower,dtype", [
+    (77, True, torch.float32), (300, False, torch.float32),
+    (512, True, torch.float32), (128, False, torch.float64)])
+def test_sparse_solver_matches_cpu(dev, bs, lower, dtype):
+    """The card's analysis (float32: the device inversion; float64: the
+    host's) and sweeps against the CPU solver at a ragged n, with TF32 on
+    for the caller: the solver's products must not take it."""
+    from miraculix_tpu_torch.solve.sparse import (SparseTriangularSolver,
+                                                  simulate_pedigree_factor)
+
+    n = 2999
+    r, c, v = simulate_pedigree_factor(n, avg_offdiag=7, seed=bs)
+    r, c = (r, c) if lower else (c, r)
+    rng = np.random.default_rng(bs)
+    b = rng.standard_normal((n, 5))
+    perm = rng.permutation(n) + 1
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    cpu = SparseTriangularSolver(r, c, v, n, bs=bs, lower=lower, dtype=dtype,
+                                 device="cpu")
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        gpu = SparseTriangularSolver(r, c, v, n, bs=bs, lower=lower,
+                                     dtype=dtype, device=dev)
+        assert gpu._dinv.is_cuda and gpu._dtype == dtype
+
+        def rel(x, y):
+            return float((x.cpu() - y).abs().max() / y.abs().max())
+
+        assert rel(gpu._dinv, cpu._dinv) < tol
+        for trans in ("n", "t"):
+            assert rel(gpu.solve(b, trans=trans),
+                       cpu.solve(b, trans=trans)) < tol, trans
+            assert rel(gpu.matvec(b, trans=trans),
+                       cpu.matvec(b, trans=trans)) < tol, trans
+        assert rel(gpu.solve_lltx(b, perm=perm, refine=1),
+                   cpu.solve_lltx(b, perm=perm, refine=1)) < tol
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    x, res = gpu.solve_f64(b, trans="t")
+    assert res <= 1e-12
+    np.testing.assert_allclose(x, cpu.solve_f64(b, trans="t")[0], rtol=0,
+                               atol=1e-10 * np.abs(x).max())
+
+
+def test_sparse_solver_defaults_to_float32_on_the_card(dev):
+    from miraculix_tpu_torch.solve.sparse import (SparseTriangularSolver,
+                                                  simulate_pedigree_factor)
+
+    r, c, v = simulate_pedigree_factor(1000, seed=1)
+    slv = SparseTriangularSolver(r, c, v, 1000)
+    assert slv.device.type == "cuda" and slv._dtype == torch.float32
+
+
+@pytest.mark.parametrize("n_anim,n_geno,snps", [(300, 97, 1001),
+                                                (257, 257, 600)])
+def test_single_step_matches_cpu(dev, n_anim, n_geno, snps):
+    """SingleStepHInv, ssgblup and single-step REML on the card against
+    their CPU paths (ragged panels; every animal genotyped in the second,
+    so A11 is empty)."""
+    from miraculix_tpu_torch import from_dense, pedigree
+    from miraculix_tpu_torch import ssgblup as ss
+    from miraculix_tpu_torch.io import bed
+
+    sire, dam = pedigree.simulate_pedigree(n_anim, n_founders=13, seed=2)
+    geno = bed.simulate_genotypes(n_geno, snps, seed=3)
+    geno_ids = np.arange(n_anim - n_geno, n_anim) + 1
+    rng = np.random.default_rng(4)
+    v = rng.standard_normal((n_anim, 3))
+    obs_ids = np.sort(rng.choice(n_anim, size=n_anim // 2,
+                                 replace=False)) + 1
+    y = rng.standard_normal(len(obs_ids))
+    out = {}
+    for d in ("cpu", dev):
+        hinv = ss.SingleStepHInv(sire, dam, from_dense(geno, device=d),
+                                 geno_ids)
+        assert hinv.ainv.rows.device.type == torch.device(d).type
+        res = ss.ssgblup(y, hinv, obs_ids=obs_ids, h2=0.4)
+        h2, det = ss.estimate_h2_reml_ss(y, hinv, obs_ids=obs_ids,
+                                         n_probes=4, max_iter=3)
+        out[str(d)] = (hinv.matvec(v).cpu().numpy(), res, h2, det)
+    (mv_c, res_c, h2_c, det_c), (mv_g, res_g, h2_g, det_g) = out.values()
+    assert np.abs(mv_g - mv_c).max() / np.abs(mv_c).max() < 1e-4
+    assert np.abs(res_g.u - res_c.u).max() / np.abs(res_c.u).max() < 1e-3
+    assert abs(res_g.iterations - res_c.iterations) <= 2
+    assert abs(h2_g - h2_c) < 1e-3 and det_g["iterations"] == \
+        det_c["iterations"]
