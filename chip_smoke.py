@@ -205,6 +205,13 @@ SS_PIPELINE = 32_768
 # CG iteration, so the cell is the reference tests' (tests/test_ssgblup.py)
 SS_SMALL_REML = (120, 48, 600)
 
+# phase 9: SNPs a chunk of the streamed panels (4 chunks of ~128 MB of
+# words at many_indiv, ~167 MB in the "ssgblup" cell; 2 of them cached);
+# gwas_mixed's CG tolerance there, resident (absolute, |rhs| ~ 1e2) and
+# streamed (relative), both ~1e-6 of |rhs| so the two scans agree to 1e-4
+STREAM_CHUNK = 16384
+STREAM_MIXED_TOL = (1e-4, 1e-6)
+
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 and
 # int8 tensor cores, and HBM; a kernel's bound is the larger of ops/peak
 # and bytes/rate.
@@ -349,11 +356,21 @@ def pedigree_bv(sire, dam, var, rng):
     return u[1:]
 
 
+def _union_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
 def device_busy(label, fn):
     """One call of ``fn`` under torch.profiler: its wall seconds (with the
     profiler's own cost), the union of its device events' intervals, the
-    idle share and the device events by name (the top 4)."""
-    import numpy as np
+    idle share and the device events by name (the top 4).  Returns (wall
+    seconds, [(name, start us, end us)] of the device events)."""
     import torch
 
     with torch.profiler.profile(
@@ -363,14 +380,11 @@ def device_busy(label, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, -np.inf
-    for a, b in spans:          # union of the events' intervals, in us
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    events = [(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [(a, b) for _, a, b in events]
+    busy = _union_us(spans)     # union of the events' intervals, in us
     top = sorted((e for e in prof.key_averages() if e.device_time_total > 0),
                  key=lambda e: -e.device_time_total)[:4]
     log(f"profiled {label}: wall {wall:.4f} s, device busy "
@@ -378,12 +392,16 @@ def device_busy(label, fn):
         f"{1 - busy / 1e6 / wall:.3f}; "
         + "; ".join(f"{e.key[:48]} {e.device_time_total / 1e3:.3f} ms "
                     f"x{e.count}" for e in top))
+    return wall, events
 
 
 def single_step(dev, sync_time, take_counts, oracle_rows, bed_path, bv):
     """Phase 7: the sparse solver and single-step GBLUP at the reference
     benchmark's sizes, then native inbreeding, the dense-oracle check and
-    the ``run_ssgblup`` pipeline with single-step REML, each counted."""
+    the ``run_ssgblup`` pipeline with single-step REML, each counted.
+    Returns the "ssgblup" cell for phase 9: its panel written as a .bed
+    beside ``bed_path``, its pedigree and records, and the warm resident
+    solve's EBVs, outer iterations and seconds."""
     import numpy as np
     import torch
 
@@ -477,10 +495,14 @@ def single_step(dev, sync_time, take_counts, oracle_rows, bed_path, bv):
     gsim = bed.simulate_genotypes(n_geno, N_SNPS, seed=11)
     t_sim = time.perf_counter() - t0
     gss, secs = sync_time(lambda: from_dense(gsim))
+    ss_bed = bed_path[:-4] + ".ss.bed"       # phase 9 streams it
+    t0 = time.perf_counter()
+    bed.write_bed(ss_bed, gsim)
+    t_bed = time.perf_counter() - t0
     del gsim
     log(f"phase single-step cell (host): simulate_pedigree({n_anim}) "
         f"{t_ped:.3f} s, simulate_genotypes({n_geno}, {N_SNPS}) "
-        f"{t_sim:.3f} s, from_dense {secs:.3f} s")
+        f"{t_sim:.3f} s, from_dense {secs:.3f} s, write_bed {t_bed:.3f} s")
     geno_ids = np.arange(n_anim - n_geno, n_anim) + 1
     obs_ids = np.arange(1, n_anim - n_geno + 1)
     y = 2.0 + np.random.default_rng(1).standard_normal(len(obs_ids))
@@ -507,6 +529,9 @@ def single_step(dev, sync_time, take_counts, oracle_rows, bed_path, bv):
     check(res.iterations < SS_MAXITER and bool(np.isfinite(res.u).all())
           and res.u.shape == (n_anim,),
           "ssgblup did not converge or gave non-finite values")
+    cell = dict(bed=ss_bed, sire=sire, dam=dam, geno_ids=geno_ids,
+                obs_ids=obs_ids, y=y, u=res.u, iterations=res.iterations,
+                secs=secs)
     del hinv, gss, res
     torch.cuda.empty_cache()
 
@@ -650,6 +675,256 @@ def single_step(dev, sync_time, take_counts, oracle_rows, bed_path, bv):
           f"{MIN_BV_CORR}")
     log(f"phase 7 (sparse solve and single-step) total: "
         f"{time.perf_counter() - t_phase:.3f} s")
+    return cell
+
+
+def streamed_phase(dev, sync_time, take_counts, bed_path, y, yb, cov, qtl,
+                   resident, secs_of, cell):
+    """Phase 9: the out-of-core StreamedGeno on the many_indiv fileset in 4
+    chunks, 2 cached and 2 copied to the card on every pass, each streamed
+    call held to the resident panel's result and counted from zero: its
+    kernel launches must equal its chunk products (chunks x passes x
+    products a chunk), no plain version may run, and its seconds, copies
+    and copy rate are printed beside the resident call's seconds; then the
+    "ssgblup" cell's panel streamed the same way, one solve against the
+    resident one."""
+    import numpy as np
+    import torch
+
+    from miraculix_tpu_torch import (StreamedGeno, _kernels, dgemm,
+                                     from_bed, gblup, grm_diag, grm_matvec,
+                                     gwas_linear, gwas_logistic, gwas_mixed,
+                                     streamed)
+    from miraculix_tpu_torch import ssgblup as ssg
+
+    t_phase = time.perf_counter()
+
+    def call(name, fn, ref_secs=None):
+        streamed.reset_stream_counts()
+        _kernels.reset_launch_counts()
+        out, secs = sync_time(fn)
+        st = dict(streamed.STREAM)
+        copy_s = streamed.copy_seconds()
+        counts = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+        plain = dict(_kernels.PLAIN_CALLS)
+        take_counts(f"streamed {name}")
+        rate = st["h2d_bytes"] / copy_s / 1e9 if copy_s > 0 else float("nan")
+        ref = "n/a" if ref_secs is None else f"{ref_secs:.3f} s"
+        log(f"phase streamed {name}: {secs:.3f} s (resident {ref}); "
+            f"{st['passes']} passes, {st['products']} chunk products, "
+            f"launches {counts}; host to device {st['h2d_copies']} chunk "
+            f"copies, {st['h2d_bytes'] / max(st['passes'], 1) / 1e6:.1f} MB "
+            f"a pass, {st['h2d_bytes'] / 1e9:.3f} GB in {copy_s:.4f} s of "
+            f"copies = {rate:.2f} GB/s")
+        check(sum(counts.values()) == st["products"],
+              f"streamed {name}: {sum(counts.values())} kernel launches for "
+              f"{st['products']} chunk products")
+        check(not plain, f"streamed {name}: plain versions ran: {plain}")
+        return out, secs, st
+
+    def rel(got, want):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    # -- 9a. the panel: 4 chunks, 2 of them cached --------------------------
+    gm, rsecs = sync_time(lambda: from_bed(bed_path))     # the resident one
+    sg, secs = sync_time(lambda: StreamedGeno.from_bed(
+        bed_path, chunk_snps=STREAM_CHUNK))
+    same = (np.array_equal(sg.freq, gm.freq.cpu().numpy())
+            and np.array_equal(sg.pseudo_freq, gm.pseudo_freq.cpu().numpy()))
+    pinned = all(t.is_pinned() for c in sg.chunks for t in (c.zq_n, c.zq_t))
+    cached = sg.cache_to_device(sg.chunks[0].nbytes + sg.chunks[1].nbytes)
+    log(f"phase streamed from_bed: {secs:.3f} s (resident {rsecs:.3f} s), "
+        f"{sg.n_chunks} chunks of "
+        f"{STREAM_CHUNK} SNPs, {sg.nbytes() / 1e6:.1f} MB of words, pinned "
+        f"{pinned}, {cached} cached; freq and pseudo_freq bit-equal to the "
+        f"resident from_bed: {same}")
+    check(sg.n_chunks == 4 and pinned and same and cached == 2,
+          "the streamed many_indiv panel: chunks, pinning, frequencies or "
+          "the two cached chunks")
+
+    # -- 9b. the products at the main paths' widths -------------------------
+    prng = np.random.default_rng(SEED + 20)
+    for trans, rows in (("n", N_SNPS), ("t", N_INDIV)):
+        for ncol in (1, 32, 65):
+            b = prng.standard_normal((rows, ncol)).astype(np.float32)
+            want, rsecs = sync_time(lambda: dgemm(gm, b, trans=trans))
+            got, _, _ = call(f"dgemm {trans} ncol={ncol}",
+                             lambda: sg.dgemm(b, trans=trans), rsecs)
+            want = want.cpu().numpy()
+            r = rel(got, want)
+            log(f"check streamed dgemm {trans} ncol={ncol} vs resident: "
+                f"rel={r:.3g}, bit-equal {np.array_equal(got, want)}")
+            check(r <= KERNEL_RTOL, f"streamed dgemm {trans} ncol={ncol}")
+        b = prng.standard_normal((rows, 12))
+        want, rsecs = sync_time(lambda: dgemm(gm, b, trans=trans,
+                                              precision="f64"))
+        got, _, _ = call(f"dgemm f64 {trans} ncol=12", lambda: sg.dgemm(
+            b, trans=trans, precision="f64"), rsecs)
+        r = rel(got, want)
+        log(f"check streamed dgemm f64 {trans} ncol=12 vs resident: "
+            f"rel={r:.3g}")
+        check(got.dtype == np.float64 and r <= F64_RTOL,
+              f"streamed dgemm f64 {trans}")
+    x1 = torch.as_tensor(prng.standard_normal((N_INDIV, 1)),
+                         dtype=torch.float32, device=dev)
+    want, rsecs = sync_time(lambda: grm_matvec(gm, x1))
+    got, secs, st = call("grm_matvec ncol=1", lambda: sg.grm_matvec(x1),
+                         rsecs)
+    r = rel(got.cpu(), want.cpu())
+    log(f"check streamed grm_matvec vs resident: rel={r:.3g}")
+    check(r <= KERNEL_RTOL, "streamed grm_matvec")
+    reps = 10
+
+    def passes():
+        return [sg.grm_matvec(x1) for _ in range(reps)]
+
+    streamed.reset_stream_counts()
+    _, secs = sync_time(passes)
+    copy_s = streamed.copy_seconds()
+    _, rsecs = sync_time(lambda: [grm_matvec(gm, x1) for _ in range(reps)])
+    wall, events = device_busy(f"streamed grm_matvec ncol=1 x{reps}", passes)
+    copies = [(a, b) for n, a, b in events if "HtoD" in n]
+    kernels = [(a, b) for n, a, b in events if "HtoD" not in n]
+    t_copy, t_kern = _union_us(copies) / 1e6, _union_us(kernels) / 1e6
+    t_over = t_copy + t_kern - _union_us(copies + kernels) / 1e6
+    log(f"phase streamed grm_matvec pass: {1e3 * secs / reps:.3f} ms a pass "
+        f"(resident {1e3 * rsecs / reps:.3f} ms; mean of {reps}), "
+        f"{st['h2d_bytes'] / 1e6:.1f} MB copied a pass = "
+        f"{st['h2d_bytes'] / (secs / reps) / 1e9:.2f} GB/s over the pass; "
+        f"the copies' CUDA events {1e3 * copy_s / reps:.3f} ms a pass "
+        f"({100 * copy_s / secs:.1f}% of it); under device_busy over "
+        f"{reps} passes: copies {1e3 * t_copy:.3f} ms "
+        f"({100 * t_copy / wall:.1f}% of {1e3 * wall:.3f} ms), kernels "
+        f"{1e3 * t_kern:.3f} ms, "
+        f"overlapped {1e3 * t_over:.3f} ms ({len(copies)} copy events of "
+        f"{4 * reps} issued, {len(kernels)} other device events)")
+    want, rsecs = sync_time(lambda: grm_diag(gm))
+    got, _, _ = call("grm_diag", lambda: sg.grm_diag(), rsecs)
+    r = rel(got, want.cpu())
+    log(f"check streamed grm_diag vs resident: rel={r:.3g}")
+    check(r <= 1e-6, "streamed grm_diag")
+
+    # -- 9c. the models ----------------------------------------------------
+    res, _, _ = call("gblup", lambda: gblup.gblup(sg, y, h2=0.5, n_pcs=10,
+                                                  tol=1e-6),
+                     secs_of["gblup"])
+    r = rel(res.g_hat, resident["gblup"])
+    log(f"  streamed gblup: cg_iterations={res.cg_iterations} converged="
+        f"{res.converged}; g_hat vs resident rel={r:.3g}")
+    check(res.converged and r <= 1e-3, "streamed gblup")
+    (h2r, det), _, _ = call("estimate_h2_reml", lambda: gblup.estimate_h2_reml(
+        sg, y), secs_of["estimate_h2_reml"])
+    d = abs(h2r - resident["estimate_h2_reml"])
+    log(f"  streamed estimate_h2_reml: h2={h2r:.4f} (resident "
+        f"{resident['estimate_h2_reml']:.4f}, |diff| {d:.3g}), AI steps "
+        f"{det['iterations']}, cg_iterations={det['cg_iterations']}, "
+        f"converged={det['converged']}")
+    check(det["converged"] and abs(h2r - 0.5) <= REML_TOL and d <= 1e-3,
+          "streamed estimate_h2_reml")
+    ys4 = resident["ys4"]
+    (_, _, dmo), _, sto = call(
+        "estimate_multi_reml t=4 (2 of 4 chunks cached)",
+        lambda: gblup.estimate_multi_reml(sg, ys4),
+        secs_of["estimate_multi_reml t=4"])
+    sga = StreamedGeno.from_bed(bed_path, chunk_snps=STREAM_CHUNK)
+    n_all = sga.cache_to_device()
+    (_, _, dmc), _, stc = call(
+        f"estimate_multi_reml t=4 ({n_all} of 4 chunks cached)",
+        lambda: gblup.estimate_multi_reml(sga, ys4),
+        secs_of["estimate_multi_reml t=4"])
+    del sga
+    d = float(np.abs(dmo["h2"] - dmc["h2"]).max())
+    log(f"  streamed estimate_multi_reml t=4: h2 {np.round(dmo['h2'], 4)} "
+        f"streaming, {np.round(dmc['h2'], 4)} cached (|diff| {d:.3g}; "
+        f"resident {np.round(resident['estimate_multi_reml t=4'], 4)}); "
+        f"AI steps {dmo['iterations']} / {dmc['iterations']}, "
+        f"cg_iterations {dmo['cg_iterations']} / {dmc['cg_iterations']}")
+    check(dmo["converged"] and dmc["converged"] and d <= 1e-3
+          and n_all == 4 and sto["h2d_copies"] > 0
+          and stc["h2d_copies"] == 0,
+          "streamed estimate_multi_reml: the two regimes")
+
+    # -- 9d. the scans -----------------------------------------------------
+    mixed_r, rsecs = sync_time(lambda: gwas_mixed(
+        gm, y, covariates=cov, n_gamma_snps=64, tol=STREAM_MIXED_TOL[0],
+        maxiter=GWAS_MAXITER))
+    resident["gwas_mixed"] = mixed_r
+    secs_of["gwas_mixed tight"] = rsecs
+    for name, fn, ref_name, stats in (
+            ("gwas_linear", lambda: gwas_linear(sg, y, covariates=cov),
+             "gwas_linear", ("beta", "se", "t")),
+            ("gwas_logistic", lambda: gwas_logistic(sg, yb, covariates=cov),
+             "gwas_logistic", ("beta", "se", "t")),
+            ("gwas_mixed", lambda: gwas_mixed(
+                sg, y, covariates=cov, n_gamma_snps=64,
+                tol=STREAM_MIXED_TOL[1], maxiter=GWAS_MAXITER),
+             "gwas_mixed tight", ("beta", "chi2"))):
+        r, _, _ = call(name, fn, secs_of[ref_name])
+        want = resident[name]
+        rels = {k: rel(getattr(r, k), getattr(want, k)) for k in stats}
+        chi2 = r.chi2 if hasattr(r, "chi2") else r.t ** 2
+        ratio = median_chi2_ratio(chi2, qtl)
+        log(f"check streamed {name} vs resident: "
+            + " ".join(f"{k} rel={v:.3g}" for k, v in rels.items())
+            + f"; QTL enrichment {ratio:.4g}"
+            + (f"; gamma {r.gamma:.6g} cg_iterations {r.cg_iterations}"
+               if hasattr(r, "gamma") else ""))
+        check(all(v <= 1e-4 for v in rels.values()) and ratio >= QTL_ENRICH
+              and all(np.isfinite(getattr(r, k)).all() for k in stats),
+              f"streamed {name}")
+
+    # -- 9e. run_gblup on the fileset, streamed ----------------------------
+    # run_gblup's own cache_to_device() holds all 4 chunks at its default
+    # budget: this check covers the all-cached regime, the overflow one's
+    # model steps are the calls on `sg` above
+    effects = bed_path[:-4] + ".streamed.effects"
+    printed = io.StringIO()
+
+    def run_pipeline():
+        with contextlib.redirect_stdout(printed):
+            return gblup.run_gblup(bed_path, estimate_h2=True,
+                                   h2_method="reml", effects_out=effects,
+                                   stream_chunk=STREAM_CHUNK)
+
+    rc, _, _ = call("run_gblup stream_chunk", run_pipeline,
+                    secs_of["run_gblup"])
+    lines = printed.getvalue().splitlines()
+    for ln in lines:
+        if not ln.lstrip().startswith(("cg iter", "ingested")):
+            log(f"  run_gblup stream_chunk: {ln}")
+    r = rel(np.loadtxt(effects, skiprows=1, usecols=2), resident["run_gblup"])
+    log(f"check streamed run_gblup (all chunks cached at the default "
+        f"budget) marker effects vs resident: rel={r:.3g}")
+    check(rc == 0 and any(ln.startswith("streamed panel") for ln in lines)
+          and r <= 1e-3, "streamed run_gblup")
+    del sg, gm
+    torch.cuda.empty_cache()
+
+    # -- 9f. the "ssgblup" cell's panel, streamed ---------------------------
+    n_anim = len(cell["sire"])
+    sgs, secs = sync_time(lambda: StreamedGeno.from_bed(
+        cell["bed"], chunk_snps=STREAM_CHUNK))
+    cached = sgs.cache_to_device(sgs.chunks[0].nbytes + sgs.chunks[1].nbytes)
+    log(f"phase streamed ssgblup panel from_bed: {secs:.3f} s, "
+        f"{sgs.n_chunks} chunks, {sgs.nbytes() / 1e6:.1f} MB of words, "
+        f"{cached} cached")
+    check(sgs.n_chunks == 4 and cached == 2, "the streamed ssgblup panel")
+    hinv, _, _ = call("SingleStepHInv set-up", lambda: ssg.SingleStepHInv(
+        cell["sire"], cell["dam"], sgs, cell["geno_ids"], blend=0.05,
+        f=np.zeros(n_anim)))
+    res, _, _ = call("ssgblup", lambda: ssg.ssgblup(
+        cell["y"], hinv, obs_ids=cell["obs_ids"], h2=0.4, tol=1e-5,
+        maxiter=SS_MAXITER), cell["secs"])
+    r = rel(res.u, cell["u"])
+    log(f"check streamed ssgblup vs resident: u rel={r:.3g}, outer CG "
+        f"iterations {res.iterations} (resident {cell['iterations']})")
+    check(res.u.shape == (n_anim,) and r <= 1e-3
+          and abs(res.iterations - cell["iterations"]) <= 2,
+          "streamed ssgblup")
+    del hinv, sgs
+    torch.cuda.empty_cache()
+    log(f"phase 9 (streamed) total: {time.perf_counter() - t_phase:.3f} s")
 
 
 def small_single_step(dev, small, seed):
@@ -1422,11 +1697,16 @@ def main() -> int:
     check(all(counts[k] > 0 for k in ("tall_dgemm", "tall_dgemm_cv",
                                       "crossprod")),
           "a kernel of the GBLUP path was never launched")
+    # what phase 9 holds its streamed calls to: resident results and their
+    # seconds (secs_of: each counted call's)
+    resident = {"gblup": res.g_hat}
+    secs_of = {"gblup": secs}
     per_fn = {}   # function -> its launches on a main path
 
     def counted(name, fn):
         before = dict(_kernels.LAUNCHES)
         out, secs = sync_time(fn)
+        secs_of[name] = secs
         per_fn[name] = {k: v - before[k] for k, v in
                         _kernels.LAUNCHES.items() if v - before[k]}
         log(f"phase main {name}: {secs:.3f} s launches={per_fn[name]}")
@@ -1453,6 +1733,7 @@ def main() -> int:
             f"{det['iterations']} cg_iterations={det['cg_iterations']} "
             f"converged={det['converged']}")
         check(det["converged"], f"{label} did not converge")
+        resident[label] = h2r
         check(abs(h2r - 0.5) <= REML_TOL and np.isfinite(det["se_h2"])
               and det["se_h2"] > 0,
               f"{label}: h2 {h2r:.4f} (se {det['se_h2']}) not within "
@@ -1460,8 +1741,8 @@ def main() -> int:
     cors, mean_cor = counted("cross_validate k=5",
                              lambda: gblup.cross_validate(gm, y, k=5))
     # one matvec (two centered tall launches) per CG iteration, plus each
-    # fold's initial residual and its prediction
-    cv_iters = per_fn["cross_validate k=5"].get("tall_dgemm_cv", 0) // 2 - 10
+    # fold's prediction
+    cv_iters = per_fn["cross_validate k=5"].get("tall_dgemm_cv", 0) // 2 - 5
     log(f"  cross_validate: fold correlations {np.round(cors, 4)}, mean "
         f"{mean_cor:.4f}, cg_iterations={cv_iters}")
     check(np.isfinite(cors).all() and mean_cor >= CV_MIN_CORR,
@@ -1485,6 +1766,7 @@ def main() -> int:
         f"{dm['rg'][0, 1]:.4f} AI steps {dm['iterations']} cg_iterations="
         f"{dm['cg_iterations']} converged={dm['converged']}")
     check(dm["converged"], "estimate_multi_reml t=4 did not converge")
+    resident["ys4"], resident["estimate_multi_reml t=4"] = ys4, dm["h2"]
     check(per_fn["estimate_multi_reml t=4"].get("wide_dgemm_split", 0) > 0,
           "estimate_multi_reml t=4 did not launch the wide split kernel")
     # multi-trait GBLUP with the bivariate REML's components on y's scale,
@@ -1540,6 +1822,7 @@ def main() -> int:
           and cor_fit[0] >= MIN_BV_CORR,
           f"run_gblup: rc {rc}, {rows} effect rows, printed cor(fitted, "
           f"phenotype) {cor_fit}")
+    resident["run_gblup"] = np.loadtxt(effects, skiprows=1, usecols=2)
     counts = take_counts("variance components")
     check(all(counts[k] > 0 for k in ("tall_dgemm", "tall_dgemm_cv",
                                       "crossprod", "wide_dgemm_split")),
@@ -1680,6 +1963,7 @@ def main() -> int:
         log(f"check gwas_linear {f} vs f64 regression on 256 SNPs: "
             f"rel={rel:.3g}")
         check(rel <= LINEAR_RTOL, f"gwas_linear {f} vs f64 regression")
+    resident.update((k, scans[k]) for k in ("gwas_linear", "gwas_logistic"))
     del scans
 
     # -- 4. the bf16/f32 tiers, counted ------------------------------------
@@ -1921,16 +2205,9 @@ def main() -> int:
     del gt, g1m, geno
     torch.cuda.empty_cache()
 
-    single_step(dev, sync_time, take_counts, oracle_rows, bed_path, bv)
-    fileset.cleanup()
+    cell = single_step(dev, sync_time, take_counts, oracle_rows, bed_path,
+                       bv)
     del oracle_rows
-    missing = [k for k in SOURCES if launches[k] == 0]
-    check(not missing, f"never launched on a main path: {missing}")
-    log("tall launches on the main paths by (mode, n): "
-        + ", ".join(f"{m} {n}: {c}" for (m, n), c in sorted(tall_hist.items())))
-    unchecked = sorted(set(tall_hist) - tall_checked)
-    check(not unchecked, f"tall widths launched on a main path but not "
-          f"checked in phase 1: {unchecked}")
 
     # -- 8. GPU vs CPU path on small panels -------------------------------
     small = bed.simulate_genotypes(600, 5000, seed=SEED + 1)
@@ -2083,6 +2360,18 @@ def main() -> int:
         v <= (F64_RTOL if "f64" in k else SMALL_RTOL)
         for k, v in rels.items()),
           "LD/GRM families disagree between the GPU and the CPU paths")
+
+    # -- 9. the out-of-core streamed panel, counted --------------------------
+    streamed_phase(dev, sync_time, take_counts, bed_path, y, yb, cov, qtl,
+                   resident, secs_of, cell)
+    fileset.cleanup()
+    missing = [k for k in SOURCES if launches[k] == 0]
+    check(not missing, f"never launched on a main path: {missing}")
+    log("tall launches on the main paths by (mode, n): "
+        + ", ".join(f"{m} {n}: {c}" for (m, n), c in sorted(tall_hist.items())))
+    unchecked = sorted(set(tall_hist) - tall_checked)
+    check(not unchecked, f"tall widths launched on a main path but not "
+          f"checked in phase 1: {unchecked}")
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[k],

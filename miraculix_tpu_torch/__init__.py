@@ -9,7 +9,9 @@ LD family (full, banded, scores, pruning, out of core) and the GRM family
 corrections, and the variance components that feed GBLUP (HE, AI-REML,
 bivariate and multi-trait REML), cross-validation and multi-trait GBLUP;
 the sparse triangular solver, the pedigree algebra (inbreeding, A and its
-sparse inverse) and single-step GBLUP with its REML.
+sparse inverse) and single-step GBLUP with its REML; panels held in host
+memory, whole (``device_put=False``) or as the out-of-core
+``StreamedGeno``, whose SNP chunks stream through the same kernels.
 The packed products run in hand-written CUDA kernels
 (``csrc/``, built at first use by ``_kernels``); on CPU tensors every op
 takes the plain torch version of its kernel.  Panels go to the CUDA card
@@ -42,6 +44,7 @@ from .solve import (CGResult, DenseSolveResult, RelMatResult, chol2inv,
                     SparseTriangularSolver, x_cinv_y_logdet)
 from .solve.cg import cg, grm_cg_solve, grm_diag, grm_matvec, jacobi_minv
 from .ssgblup import SingleStepHInv
+from .streamed import StreamedGeno
 
 __version__ = "0.1.0"
 
@@ -56,6 +59,7 @@ __all__ = [
     "SingleStepHInv",
     "SparseCOO",
     "SparseTriangularSolver",
+    "StreamedGeno",
     "a_inverse",
     "a_matrix",
     "cg",

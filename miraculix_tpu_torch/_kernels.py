@@ -43,6 +43,10 @@ WIDE_PASSES = {"bf16": 1, "split": 2, "hilo": 2, "f32": 3}
 
 # (mode, n) -> tall launches since the last reset_launch_counts()
 TALL_WIDTHS: collections.Counter = collections.Counter()
+# plain version -> its calls since the last reset_launch_counts(): each call
+# is a product whose words lay on the CPU, so a run on the card whose
+# products all launched kernels leaves every count at 0
+PLAIN_CALLS: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
 _lib = None
@@ -52,6 +56,7 @@ def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     TALL_WIDTHS.clear()
+    PLAIN_CALLS.clear()
 
 
 def _nvcc() -> str:

@@ -21,6 +21,11 @@ GRM and the ``run_gblup`` pipeline keep the reference's split: every
 product with G and every CG runs on the panel's device in f32, and the
 glue around them (projections, traces, the average-information matrix and
 its updates) stays numpy float64 on the host.
+
+Every function takes a :class:`GenoMatrix` (a host-resident one gets one
+device copy per call) or an out-of-core :class:`StreamedGeno`, whose G
+products stream its chunks and whose solves are its host float64 PCG, as
+in the reference; the sharded containers are not ported yet (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -30,37 +35,55 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .geno import GenoMatrix, _device, from_bed
+from .geno import GenoMatrix, _device, from_bed, on_compute
 from .ops.dgemm import dgemm
 from .ops.grm import grm
 from .solve.cg import (cg, grm_cg_solve, grm_cg_solve_refined, grm_diag,
                        grm_matvec, grm_matvec_f64, jacobi_minv)
 from .solve.dense import dense_solve
+from .streamed import StreamedGeno
 
 
-def _check_container(g) -> None:
-    if not isinstance(g, GenoMatrix):
-        raise NotImplementedError(
-            f"{type(g).__name__}: sharded and streamed containers are not "
-            "ported yet (ROADMAP A12-A13)")
+def _check_container(g):
+    """``g`` ready to compute on: a GenoMatrix with its words on its
+    compute device (:func:`geno.on_compute`), or a StreamedGeno as it is.
+    Other containers raise."""
+    if isinstance(g, GenoMatrix):
+        return on_compute(g)
+    if isinstance(g, StreamedGeno):
+        return g
+    raise NotImplementedError(
+        f"{type(g).__name__}: the sharded containers are not ported yet "
+        "(ROADMAP A13)")
 
 
 def _grm_matvec_of(g):
-    """G v operator (torch f32 in and out, on the panel's device)."""
-    _check_container(g)
+    """G v operator (torch f32 in and out, on the panel's compute device):
+    two packed products, or one streamed pass over the chunks."""
+    g = _check_container(g)
+    if isinstance(g, StreamedGeno):
+        return g.grm_matvec
     return lambda v: grm_matvec(g, v)
 
 
 def _grm_diag_of(g) -> np.ndarray:
     """Exact diag(Z_c Z_c^T) as numpy float64."""
-    _check_container(g)
+    g = _check_container(g)
+    if isinstance(g, StreamedGeno):
+        return g.grm_diag(center=True)
     return grm_diag(g, center=True, scale=False).cpu().numpy().astype(
         np.float64)
 
 
 def _scaled_matvec_of(g):
     """G_s W for numpy [n, m] blocks: float64 in, one f32 device matvec,
-    float64 out divided by sigma2 (the REML machinery's building block)."""
+    float64 out divided by sigma2 (the REML machinery's building block).
+    A streamed panel first caches what fits on the device
+    (``cache_to_device``, idempotent): every pass over a streamed chunk
+    copies it again."""
+    g = _check_container(g)
+    if isinstance(g, StreamedGeno):
+        g.cache_to_device()
     raw = _grm_matvec_of(g)
     sigma2 = float(g.sigma2)
     return lambda w: raw(torch.as_tensor(
@@ -74,16 +97,17 @@ def randomized_grm_pca(g: GenoMatrix, k: int = 10, oversample: int = 8,
     """Top-k eigenpairs of the (unscaled, centered) GRM by the Halko
     randomized range finder, G applied as Z_c (Z_c^T .).  Returns
     (eigenvalues [k], eigenvectors [indiv, k]) as numpy arrays."""
-    _check_container(g)
+    g = _check_container(g)
+    matvec = _grm_matvec_of(g)
     rng = np.random.default_rng(seed)
     omega = torch.as_tensor(rng.standard_normal((g.indiv, k + oversample)),
                             dtype=torch.float32, device=g.device)
-    y = grm_matvec(g, omega)
+    y = matvec(omega)
     for _ in range(power_iters):
         q, _ = torch.linalg.qr(y)
-        y = grm_matvec(g, q)
+        y = matvec(q)
     q, _ = torch.linalg.qr(y)
-    t = q.T @ grm_matvec(g, q)
+    t = q.T @ matvec(q)
     t = 0.5 * (t + t.T)
     w, v = torch.linalg.eigh(t)
     idx = torch.argsort(w, descending=True)[:k]
@@ -112,11 +136,15 @@ def gblup(g: GenoMatrix, y: np.ndarray, h2: float = 0.5, n_pcs: int = 10,
     b' = rhs), "refined" (float64-grade solves by iterative refinement,
     ``tol`` the relative f64 residual, e.g. 1e-10; g_hat by the f64
     matvec), or "dense" (the scaled GRM formed by :func:`grm` and solved by
-    Cholesky in f32).  ``verbose`` is accepted for the reference's
-    signature; on a ``GenoMatrix`` it prints nothing, as there."""
+    Cholesky in f32).  A :class:`StreamedGeno` takes "cg" only, solved
+    by its host float64 PCG (``tol`` relative there, as in the reference;
+    ``verbose`` prints its iterations, and nothing on a ``GenoMatrix``)."""
     if solver not in ("cg", "refined", "dense"):
         raise ValueError(f"solver must be cg/refined/dense, got {solver!r}")
-    _check_container(g)
+    g = _check_container(g)
+    streamed = isinstance(g, StreamedGeno)
+    if streamed and solver != "cg":
+        raise ValueError("sharded/streamed GBLUP supports solver='cg' only")
     n = g.indiv
     lam = (1.0 - h2) / h2
     y = np.asarray(y, dtype=np.float64).reshape(n)
@@ -142,6 +170,12 @@ def gblup(g: GenoMatrix, y: np.ndarray, h2: float = 0.5, n_pcs: int = 10,
     def _cg(rhs: np.ndarray) -> Tuple[np.ndarray, int]:
         """(Z_c Z_c^T + lam sigma2 I) b' = rhs; returns (sigma2 b', iters)."""
         nonlocal converged
+        if streamed:
+            xs, iters, rel = g.cg_solve(rhs, lam=lam * sigma2, scale=False,
+                                        tol=tol, maxiter=maxiter,
+                                        verbose=verbose)
+            converged &= bool(np.all(rel <= tol))
+            return xs * sigma2, iters
         if solver == "refined":
             xs, _, inner, rel = grm_cg_solve_refined(
                 g, rhs, lam=lam * sigma2, scale=False, tol=tol,
@@ -180,7 +214,7 @@ def gblup(g: GenoMatrix, y: np.ndarray, h2: float = 0.5, n_pcs: int = 10,
         if solver == "refined":
             g_hat = grm_matvec_f64(g, u[:, None])[:, 0] / sigma2
         else:
-            g_hat = grm_matvec(g, torch.as_tensor(
+            g_hat = _grm_matvec_of(g)(torch.as_tensor(
                 u[:, None], dtype=torch.float32, device=g.device))
             g_hat = g_hat.cpu().numpy().astype(np.float64)[:, 0] / sigma2
     return GBLUPResult(beta=beta, g_hat=g_hat, fitted=x @ beta + g_hat,
@@ -188,12 +222,17 @@ def gblup(g: GenoMatrix, y: np.ndarray, h2: float = 0.5, n_pcs: int = 10,
 
 
 def snp_effects(g: GenoMatrix, res: GBLUPResult) -> np.ndarray:
-    """Per-SNP marker effects alpha = Z_c^T u / sigma2 (g_hat = Z_c alpha)."""
-    _check_container(g)
+    """Per-SNP marker effects alpha = Z_c^T u / sigma2 (g_hat = Z_c alpha):
+    one packed 't' pass, streamed on a :class:`StreamedGeno`."""
+    g = _check_container(g)
     if res.u is None:
         raise ValueError("GBLUPResult has no random-effect solutions")
-    u = torch.as_tensor(res.u[:, None], dtype=torch.float32, device=g.device)
-    a = dgemm(g, u, trans="t", center=True).cpu().numpy().astype(np.float64)
+    u = res.u[:, None].astype(np.float32)
+    if isinstance(g, StreamedGeno):
+        a = g.dgemm(u, trans="t", center=True).astype(np.float64)
+    else:
+        a = dgemm(g, u, trans="t", center=True).cpu().numpy().astype(
+            np.float64)
     return a[:, 0] / float(g.sigma2)
 
 
@@ -234,15 +273,21 @@ def run_gblup(bed_path: str, h2: float = 0.5, pcs: int = 10,
     column when present, else simulated with known breeding values;
     optionally h2 by HE or AI-REML first, and the marker effects written
     to ``effects_out``.  The panel goes to ``device`` (the CUDA card unless
-    named).  ``stream_chunk`` > 0 (the out-of-core container) is not
-    ported yet."""
+    named).  ``stream_chunk`` > 0 reads it as the out-of-core
+    :class:`StreamedGeno` in SNP chunks of that size, host-resident with
+    ``device`` its compute device, and caches on the device what fits."""
     from .io import bed as bedio
+    from .io import codec
 
     if stream_chunk > 0:
-        raise NotImplementedError(
-            "stream_chunk > 0: the streamed container is not ported yet "
-            "(ROADMAP A12)")
-    g = from_bed(bed_path, device=device)
+        g = StreamedGeno.from_bed(bed_path, chunk_snps=stream_chunk,
+                                  verbose=True, device=device)
+        cached = g.cache_to_device()
+        print(f"streamed panel: {g.snps} snps x {g.indiv} indiv, "
+              f"{g.n_chunks} chunks, {g.nbytes() / 1e9:.1f} GB packed "
+              f"({cached} chunks pinned in HBM, rest host-streamed)")
+    else:
+        g = from_bed(bed_path, device=device)
     # phenotype = 6th whitespace column of each .fam line (parsed per line,
     # so extra columns or odd spacing cannot shift the stride)
     with open(bed_path[:-4] + ".fam") as fh:
@@ -268,7 +313,14 @@ def run_gblup(bed_path: str, h2: float = 0.5, pcs: int = 10,
             ".fam; subset the panel to phenotyped individuals before "
             "running GBLUP")
     if n_miss == len(y):                   # no phenotypes at all: simulate
-        geno, _ = bedio.read_bed_genotypes(bed_path)
+        if stream_chunk > 0:
+            # out of core: QTLs from the first SNP window only, never the
+            # whole panel decoded
+            plink, _, _ = bedio.read_bed_slice(bed_path, 0,
+                                               min(1024, g.snps))
+            geno = codec.plink_to_dense(plink, g.indiv)
+        else:
+            geno, _ = bedio.read_bed_genotypes(bed_path)
         y, bv_true = simulate_phenotypes(geno, h2=h2)
         del geno
         print("(.fam has no phenotypes — simulated with known BVs)")
@@ -285,7 +337,7 @@ def run_gblup(bed_path: str, h2: float = 0.5, pcs: int = 10,
         h2 = min(max(h2_hat, 0.01), 0.99)
 
     res = gblup(g, y, h2=h2, n_pcs=pcs, solver=solver, tol=tol,
-                maxiter=maxiter, verbose=verbose)
+                maxiter=maxiter, verbose=verbose or stream_chunk > 0)
     print(f"beta: {np.round(res.beta[:3], 4)}... "
           f"(CG iterations: {res.cg_iterations})")
     if bv_true is not None:
@@ -299,7 +351,8 @@ def run_gblup(bed_path: str, h2: float = 0.5, pcs: int = 10,
         # of A2 (0b00, hom A1, decodes to 0), so the effect allele is the
         # .bim's 6th column, as plink --score needs it.
         alpha = snp_effects(g, res)
-        freq = g.freq.cpu().numpy().astype(np.float64)
+        freq = np.asarray(g.freq if stream_chunk > 0 else g.freq.cpu(),
+                          np.float64)
         bim = bedio.read_bim(bed_path)
         if len(bim) != len(alpha):
             raise SystemExit(f".bim has {len(bim)} SNPs but the panel has "
@@ -325,7 +378,8 @@ def cross_validate(g: GenoMatrix, y: np.ndarray, h2: float = 0.5, k: int = 5,
     by each fold's training mean.  ``tol`` bounds each CG's absolute
     residual norm.  Returns ``(per_fold_correlations, mean_correlation)``.
     """
-    _check_container(g)
+    g = _check_container(g)
+    matvec = _grm_matvec_of(g)
     n = g.indiv
     lam = (1.0 - h2) / h2
     y = np.asarray(y, np.float64).reshape(n)
@@ -342,11 +396,11 @@ def cross_validate(g: GenoMatrix, y: np.ndarray, h2: float = 0.5, k: int = 5,
                             dtype=torch.float32, device=g.device)
 
         def op(v, mj=mj):
-            gv = grm_matvec(g, mj * v) / sigma2
+            gv = matvec(mj * v) / sigma2
             return mj * gv + lam * (mj * v) + (1.0 - mj) * v
 
         u = cg(op, b, tol=tol, maxiter=maxiter).x
-        pred = grm_matvec(g, u).cpu().numpy().astype(np.float64)[:, 0]
+        pred = matvec(u).cpu().numpy().astype(np.float64)[:, 0]
         yhat = pred[test_idx] / sigma2 + ybar
         cors.append(float(np.corrcoef(yhat, y[test_idx])[0, 1]))
     return np.asarray(cors), float(np.mean(cors))
@@ -354,9 +408,17 @@ def cross_validate(g: GenoMatrix, y: np.ndarray, h2: float = 0.5, k: int = 5,
 
 def _ridge_solver(g: GenoMatrix, tol: float, maxiter: int):
     """``solve(rhs, lam) -> (x float64, iterations)``: (Z_c Z_c^T + lam I)
-    x = rhs for a numpy block by Jacobi-preconditioned CG on the device,
-    ``lam`` taken at run time."""
-    _check_container(g)
+    x = rhs for a numpy block by Jacobi-preconditioned CG on the device
+    (a streamed panel's host PCG), ``lam`` taken at run time."""
+    g = _check_container(g)
+
+    if isinstance(g, StreamedGeno):
+        def solve(rhs, lam):
+            x, iters, _ = g.cg_solve(rhs, lam=float(lam), scale=False,
+                                     tol=tol, maxiter=maxiter,
+                                     precondition=True)
+            return np.asarray(x, np.float64), int(iters)
+        return solve
 
     def solve(rhs, lam):
         r = grm_cg_solve(g, rhs, lam=lam, scale=False, tol=tol,
@@ -390,7 +452,7 @@ def estimate_h2_reml(g: GenoMatrix, y: np.ndarray,
     ``vg``/``ve`` on y's scale, the delta-method ``se_h2``, the AI steps
     (``iterations``), ``converged`` and the CG total.
     """
-    _check_container(g)
+    g = _check_container(g)
     n = g.indiv
     y = np.asarray(y, np.float64).reshape(n)
     yvar = float(y.var())
@@ -521,7 +583,7 @@ def estimate_h2_he(g: GenoMatrix, y: np.ndarray, n_probes: int = 16,
     ``n_probes`` Rademacher probes, one block).  Returns
     ``(h2_hat clipped to [0, 1], details)``.
     """
-    _check_container(g)
+    g = _check_container(g)
     n = g.indiv
     y = np.asarray(y, np.float64).reshape(n)
     yt = (y - y.mean()) / max(y.std(), 1e-12)
@@ -554,8 +616,18 @@ def _multi_v_solver(g: GenoMatrix, t: int, dG: np.ndarray, cg_tol: float,
     CG's absolute ``cg_tol`` reads as the relative one of the host loop.
 
     Returns ``solve(b3 [n, t, m] float64, sg, se) -> (x3 float64,
-    iterations)``."""
-    raw = _grm_matvec_of(g)
+    iterations)``.  A :class:`StreamedGeno` takes
+    :func:`_multi_v_solver_streamed`."""
+    g = _check_container(g)
+    if isinstance(g, StreamedGeno):
+        return _multi_v_solver_streamed(g, t, dG, cg_tol, cg_maxiter)
+    return _multi_v_cg(_grm_matvec_of(g), g, t, dG, cg_tol, cg_maxiter)
+
+
+def _multi_v_cg(raw, g, t: int, dG: np.ndarray, cg_tol: float,
+                cg_maxiter: int):
+    """The body of :func:`_multi_v_solver` on the G operator ``raw``: one
+    device CG a solve, every vector on ``g``'s compute device."""
     n = g.indiv
     sigma2 = float(g.sigma2)
     dev = g.device
@@ -589,6 +661,18 @@ def _multi_v_solver(g: GenoMatrix, t: int, dG: np.ndarray, cg_tol: float,
     return solve
 
 
+def _multi_v_solver_streamed(g: StreamedGeno, t: int, dG: np.ndarray,
+                             cg_tol: float, cg_maxiter: int):
+    """The V-solve on a streamed panel: :func:`_multi_v_cg` on the
+    container's ``grm_matvec``, after ``cache_to_device`` has cached what
+    fits.  Its vectors stay on the device in both of the reference's
+    regimes; with every chunk cached no pass copies, and where chunks
+    overflow each pass streams them, with one host read of the stop test
+    an iteration."""
+    g.cache_to_device()
+    return _multi_v_cg(g.grm_matvec, g, t, dG, cg_tol, cg_maxiter)
+
+
 def estimate_multi_reml(g: GenoMatrix, ys: np.ndarray, covariates=None,
                         n_probes: int = 8, probes=None, max_iter: int = 40,
                         tol: float = 5e-4, cg_tol: float = 1e-5,
@@ -609,13 +693,14 @@ def estimate_multi_reml(g: GenoMatrix, ys: np.ndarray, covariates=None,
 
     ``device_cg=True`` runs every inner V^-1 as one block CG on the
     device (:func:`_multi_v_solver`); ``False`` runs the host float64 loop,
-    the oracle of the device path.
+    the oracle of the device path.  On a :class:`StreamedGeno` the device
+    path is :func:`_multi_v_solver_streamed`.
 
     Returns ``(Sg, Se, details)``: per-trait ``h2``, genetic correlations
     ``rg`` [t, t], delta-method SEs, AI steps, ``converged`` and the CG
     total.
     """
-    _check_container(g)
+    g = _check_container(g)
     n = g.indiv
     ys = np.asarray(ys, np.float64)
     if ys.ndim != 2 or ys.shape[0] != n:
@@ -924,8 +1009,14 @@ def multi_trait_gblup(g: GenoMatrix, y: np.ndarray, su: np.ndarray,
     GLS equations and the BLUP are solved by one Jacobi block CG each over
     the normalized RHS (diag(V) = Su_jj diag(G_s) + Se_jj).  NaN cells of
     ``y`` are missing: the solve restricts V to the observed cells, and the
-    BLUP predicts every cell."""
-    _check_container(g)
+    BLUP predicts every cell.  A :class:`StreamedGeno` raises TypeError,
+    as in the reference."""
+    g = _check_container(g)
+    if isinstance(g, StreamedGeno):
+        raise TypeError(
+            "multi_trait_gblup takes a GenoMatrix, not a StreamedGeno: its "
+            "solves are device CGs over the whole panel; materialize the "
+            "panel instead")
     n = g.indiv
     y = np.asarray(y, np.float64)
     if y.ndim != 2 or y.shape[0] != n:

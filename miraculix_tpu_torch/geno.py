@@ -8,6 +8,12 @@ coordinates.  ``save``/``load`` use the reference's ``.npz`` layout, and
 arrays, so a panel packed by either package is used by the other unchanged.
 The constructors put the panel on the CUDA card unless ``device`` names
 another device.
+
+A host-resident panel (``device_put=False``) keeps its words and frequency
+caches in host memory (pinned where CUDA is available) and records its
+compute device apart from them: every entry point that takes a panel starts
+with :func:`on_compute`, which gives it a device copy for the call, so its
+products run the compute device's kernels wherever the words live.
 """
 from __future__ import annotations
 
@@ -50,10 +56,18 @@ class GenoMatrix:
     pseudo_freq: Optional[torch.Tensor] = None
     miss_rows_n: Optional[torch.Tensor] = None
     miss_cols_n: Optional[torch.Tensor] = None
+    # set on a host-resident panel: the device its products run on
+    compute_device: Optional[torch.device] = None
 
     @property
     def device(self) -> torch.device:
-        return self.zq_n.device
+        """The device the panel computes on (and its results live on)."""
+        return self.zq_n.device if self.compute_device is None \
+            else self.compute_device
+
+    @property
+    def host_resident(self) -> bool:
+        return self.compute_device is not None
 
     @property
     def nbytes(self) -> int:
@@ -105,8 +119,10 @@ class GenoMatrix:
         return torch.sum(self.snp_sums())
 
     def __repr__(self) -> str:
+        where = " (host-resident)" if self.host_resident else ""
         return (f"GenoMatrix(snps={self.snps}, indiv={self.indiv}, "
-                f"packed={self.nbytes / 1e6:.1f} MB, device={self.device})")
+                f"packed={self.nbytes / 1e6:.1f} MB, "
+                f"device={self.device}{where})")
 
 
 def _device(device) -> torch.device:
@@ -120,20 +136,55 @@ def _device(device) -> torch.device:
 
 
 def _container(snps, indiv, zq_n, zq_t, freq, pseudo_freq=None,
-               miss=None, device=None) -> GenoMatrix:
-    """GenoMatrix on ``device`` from word tensors and numpy statistics."""
+               miss=None, device=None, device_put: bool = True
+               ) -> GenoMatrix:
+    """GenoMatrix from word tensors and numpy statistics, on ``device``, or
+    with ``device_put=False`` host-resident with ``device`` its compute
+    device (the host tensors pinned where CUDA is available)."""
     device = _device(device)
+    home = device if device_put else torch.device("cpu")
+    pin = not device_put and torch.cuda.is_available()
+
+    def put(t):
+        t = t.to(home)
+        return t.pin_memory() if pin else t
 
     def vec(a, dtype):
-        return None if a is None else torch.tensor(
-            np.asarray(a, dtype), device=device)
+        return None if a is None else put(torch.tensor(np.asarray(a, dtype)))
 
     mr, mc = (None, None) if miss is None else miss
     return GenoMatrix(
-        snps=int(snps), indiv=int(indiv), zq_n=zq_n.to(device),
-        zq_t=zq_t.to(device), freq=vec(freq, np.float32),
-        pseudo_freq=vec(pseudo_freq, np.float32),
-        miss_rows_n=vec(mr, np.int64), miss_cols_n=vec(mc, np.int64))
+        snps=int(snps), indiv=int(indiv), zq_n=put(zq_n), zq_t=put(zq_t),
+        freq=vec(freq, np.float32), pseudo_freq=vec(pseudo_freq, np.float32),
+        miss_rows_n=vec(mr, np.int64), miss_cols_n=vec(mc, np.int64),
+        compute_device=None if device_put else device)
+
+
+def _moved(g: GenoMatrix, device, copy: bool = False,
+           non_blocking: bool = False) -> GenoMatrix:
+    """``g``'s fields on ``device`` as a device-resident panel (``copy``:
+    new tensors even where they already live there)."""
+    def move(t):
+        return None if t is None else t.to(device, copy=copy,
+                                           non_blocking=non_blocking)
+
+    return GenoMatrix(snps=g.snps, indiv=g.indiv, zq_n=move(g.zq_n),
+                      zq_t=move(g.zq_t), freq=move(g.freq),
+                      pseudo_freq=move(g.pseudo_freq),
+                      miss_rows_n=move(g.miss_rows_n),
+                      miss_cols_n=move(g.miss_cols_n))
+
+
+def on_compute(g: GenoMatrix) -> GenoMatrix:
+    """``g`` with its words on its compute device: the panel itself where
+    they already live there, else a copy for this call (from pinned host
+    memory, asynchronous on the current stream), as the reference's
+    ``jnp.asarray`` moves a host-resident panel's numpy words.  A
+    host-resident panel whose compute device is the card so runs the card's
+    kernels, never the plain versions."""
+    if not g.host_resident or g.zq_n.device.type == g.compute_device.type:
+        return g
+    return _moved(g, g.compute_device, non_blocking=True)
 
 
 def from_reference_state(d: dict, device=None) -> GenoMatrix:
@@ -148,15 +199,8 @@ def from_reference_state(d: dict, device=None) -> GenoMatrix:
                       miss, device)
 
 
-def _check_device_put(device_put: bool) -> None:
-    if not device_put:
-        raise NotImplementedError(
-            "device_put=False: host-resident panels are the out-of-core "
-            "path, not ported yet (ROADMAP A12)")
-
-
 def _from_both(geno: np.ndarray, geno_t: np.ndarray, freq, keep_missing_info,
-               row_mult: int, device) -> GenoMatrix:
+               row_mult: int, device, device_put: bool = True) -> GenoMatrix:
     """GenoMatrix from genotypes [indiv, snps] and their C-contiguous
     transpose: each orientation packs from contiguous rows, and each
     frequency cache is a column pass."""
@@ -167,7 +211,8 @@ def _from_both(geno: np.ndarray, geno_t: np.ndarray, freq, keep_missing_info,
     zq_t = _words(codec.pack_planar16(geno_t, row_mult=row_mult))
     n_indiv, n_snps = geno.shape
     return _container(n_snps, n_indiv, zq_n, zq_t, freq,
-                      codec.allele_freq(geno_t, axis=0), miss, device)
+                      codec.allele_freq(geno_t, axis=0), miss, device,
+                      device_put)
 
 
 def from_dense(geno: np.ndarray, freq: Optional[np.ndarray] = None,
@@ -175,13 +220,12 @@ def from_dense(geno: np.ndarray, freq: Optional[np.ndarray] = None,
                device_put: bool = True, device=None) -> GenoMatrix:
     """Pack a dense genotype matrix [indiv, snps] (0/1/2, 3 = missing).
     ``row_mult`` pads the packed rows of both orientations.
-    ``device_put=False`` (a host-resident panel) raises NotImplementedError:
-    it belongs to the out-of-core path."""
-    _check_device_put(device_put)
+    ``device_put=False`` keeps the panel host-resident, with ``device`` its
+    compute device."""
     device = _device(device)
     geno = np.ascontiguousarray(geno, dtype=np.uint8)
     return _from_both(geno, codec.transpose_u8(geno), freq,
-                      keep_missing_info, row_mult, device)
+                      keep_missing_info, row_mult, device, device_put)
 
 
 def from_plink(plink: np.ndarray, snps: int, indiv: int,
@@ -204,8 +248,8 @@ def from_bed(path: str, freq: Optional[np.ndarray] = None,
     reference does).  Otherwise, or where the native codec is unavailable,
     the payload decodes to the [snps, indiv] orientation, is transposed once
     and both orientations are packed; the words and frequencies are the
-    same on both paths."""
-    _check_device_put(device_put)
+    same on both paths.  ``device_put=False`` keeps the panel host-resident,
+    with ``device`` its compute device."""
     device = _device(device)
     payload, n_snps, n_indiv = bed.read_bed_payload(path)
     if not keep_missing_info and row_mult == ROW_MULT:
@@ -216,10 +260,10 @@ def from_bed(path: str, freq: Optional[np.ndarray] = None,
             zqt, zqn, freq_c, pfreq = out
             return _container(n_snps, n_indiv, _words(zqn), _words(zqt),
                               freq_c if freq is None else freq, pfreq,
-                              None, device)
+                              None, device, device_put)
     geno_t = codec.payload_to_dense(payload, n_indiv)    # [snps, indiv]
     return _from_both(codec.transpose_u8(geno_t), geno_t, freq,
-                      keep_missing_info, row_mult, device)
+                      keep_missing_info, row_mult, device, device_put)
 
 
 def subset_snps(g: GenoMatrix, idx, freq: Optional[np.ndarray] = None
@@ -240,6 +284,7 @@ def subset_snps(g: GenoMatrix, idx, freq: Optional[np.ndarray] = None
     coordinates are restricted to ``idx`` and remapped (a repeated index
     keeps only its last occurrence's coordinates).
     """
+    g = on_compute(g)
     idx = np.asarray(idx, np.int64)
     if idx.ndim != 1 or (idx.size and (idx.min() < 0 or
                                        idx.max() >= g.snps)):

@@ -13,6 +13,10 @@ looped over.  The mixed scans add one block CG against
 V = G / sigma^2 + lam I over [M y | M z_sampled]: at the default 64 sampled
 SNPs that is 65 columns, which run on the wide kernel.  Host arithmetic is
 numpy float64, as in the reference.
+
+On an out-of-core :class:`StreamedGeno` every packed pass streams the
+chunks, and the mixed scan's block CG is the container's host PCG, as in
+the reference; the LOCO scan needs a GenoMatrix.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from .geno import GenoMatrix, subset_snps
 from .ops.common import packed_indicator2, packed_row_sq_stats
 from .ops.dgemm import dgemm, packed_matmul_tall
 from .solve.cg import cg, grm_cg_solve, grm_diag, grm_matvec, jacobi_minv
+from .streamed import StreamedGeno
 
 
 class GWASResult(NamedTuple):
@@ -68,9 +73,14 @@ def _design(n: int, covariates) -> np.ndarray:
 def _snp_residual_denominators(g: GenoMatrix, x: np.ndarray,
                                xtx_inv: np.ndarray) -> np.ndarray:
     """d_s = z_s^T M z_s for every SNP (clamped at 0): one packed 't' pass
-    (Z^T X) plus the exact sum z^2 per SNP."""
+    (Z^T X) plus the exact sum z^2 per SNP (a pass of its own, chunk by
+    chunk, on a streamed panel)."""
     a = _t_pass(g, x)                                           # [snps, p]
-    zsq = _host(packed_row_sq_stats(g.zq_t))[: g.snps]          # diag(Z^T Z)
+    if isinstance(g, StreamedGeno):
+        zsq = np.concatenate([_host(packed_row_sq_stats(c.zq_t))[: c.snps]
+                              for c in g.each_chunk(0)])
+    else:
+        zsq = _host(packed_row_sq_stats(g.zq_t))[: g.snps]      # diag(Z^T Z)
     return np.maximum(zsq - np.einsum("sp,pq,sq->s", a, xtx_inv, a), 0.0)
 
 
@@ -78,6 +88,9 @@ def _t_pass(g: GenoMatrix, v: np.ndarray) -> np.ndarray:
     """Z^T v (uncentered) as one packed 't' pass, numpy f64 [snps, k]."""
     if v.ndim == 1:
         v = v[:, None]
+    if isinstance(g, StreamedGeno):
+        return g.dgemm(v.astype(np.float32), trans="t",
+                       center=False).astype(np.float64)
     return _host(dgemm(g, v.astype(np.float32), trans="t", center=False))
 
 
@@ -99,7 +112,7 @@ def gwas_linear(g: GenoMatrix, y: np.ndarray,
     ``y``: [indiv] phenotype; ``covariates``: optional [indiv, c] (the
     intercept is always added).  t statistics use the per-SNP residual
     variance (y~^T y~ - beta_s^2 d_s) / (n - p - 1)."""
-    _check_container(g)
+    g = _check_container(g)
     n = g.indiv
     y = np.asarray(y, np.float64).reshape(n)
     x = _design(n, covariates)
@@ -125,8 +138,13 @@ def gwas_linear(g: GenoMatrix, y: np.ndarray,
 
 def _sampled_columns(g: GenoMatrix, snps: np.ndarray) -> np.ndarray:
     """The genotype columns of ``snps`` [n, k]: the subset panel times the
-    identity, one packed 'n' pass."""
+    identity, one packed 'n' pass; a streamed panel, which has no subset,
+    streams a one-hot [snps, k] RHS instead."""
     k = len(snps)
+    if isinstance(g, StreamedGeno):
+        onehot = np.zeros((g.snps, k), np.float32)
+        onehot[snps, np.arange(k)] = 1.0
+        return g.dgemm(onehot, trans="n", center=False).astype(np.float64)
     return _host(dgemm(subset_snps(g, snps), np.eye(k, dtype=np.float32),
                        trans="n", center=False))
 
@@ -148,8 +166,10 @@ def gwas_mixed(g: GenoMatrix, y: np.ndarray,
 
         U_s = z_s^T (M V^-1 M y),   chi2_s = U_s^2 / (gamma d_s).
 
-    ``tol`` bounds each CG column's residual norm (absolute)."""
-    _check_container(g)
+    ``tol`` bounds each CG column's residual norm (absolute; relative on
+    a :class:`StreamedGeno`, whose Jacobi-preconditioned host PCG takes
+    the block CG's place, as in the reference)."""
+    g = _check_container(g)
     n = g.indiv
     lam = (1.0 - h2) / h2
     y = np.asarray(y, np.float64).reshape(n)
@@ -166,9 +186,15 @@ def gwas_mixed(g: GenoMatrix, y: np.ndarray,
     mzcols = proj(_sampled_columns(g, sample))
 
     rhs = np.concatenate([y_res[:, None], mzcols], axis=1)
-    res = grm_cg_solve(g, rhs.astype(np.float32), lam=lam, scale=True,
-                       tol=tol, maxiter=maxiter)
-    solved = _host(res.x)
+    if isinstance(g, StreamedGeno):
+        solved, iters, rel = g.cg_solve(rhs, lam=lam, scale=True, tol=tol,
+                                        maxiter=maxiter, precondition=True)
+        resid = float((rel * np.linalg.norm(rhs, axis=0)).max())
+    else:
+        res = grm_cg_solve(g, rhs.astype(np.float32), lam=lam, scale=True,
+                           tol=tol, maxiter=maxiter)
+        solved, iters = _host(res.x), int(res.iterations)
+        resid = float(res.residual_norm.max())
     ystar = proj(solved[:, 0])
     d = _snp_residual_denominators(g, x, xtx_inv)
     gamma = _gamma(mzcols, solved[:, 1:], d[sample])
@@ -179,8 +205,7 @@ def gwas_mixed(g: GenoMatrix, y: np.ndarray,
         beta = np.where(d > 0, u / (gamma * np.maximum(d, 1e-300)), 0.0)
     return MixedGWASResult(
         beta=beta, chi2=chi2, p=_pvalues("chi2", chi2), gamma=gamma,
-        cg_iterations=int(res.iterations),
-        residual_norm=np.array([float(res.residual_norm.max())]))
+        cg_iterations=iters, residual_norm=np.array([resid]))
 
 
 def gwas_logistic(g: GenoMatrix, y: np.ndarray,
@@ -194,8 +219,10 @@ def gwas_logistic(g: GenoMatrix, y: np.ndarray,
     with w = mu (1 - mu) and a_s = X^T W z_s.  sum w z^2 = sum w z +
     2 sum w 1(z = 2): the z = 2 indicator is itself a packed panel
     (``packed_indicator2``), so every term is a packed product.  ``beta`` is
-    the one-step U/V, se = 1/sqrt(V), and t the signed score statistic."""
-    _check_container(g)
+    the one-step U/V, se = 1/sqrt(V), and t the signed score statistic.
+    On a streamed panel each chunk's indicator packing is made and
+    multiplied on the compute device."""
+    g = _check_container(g)
     n = g.indiv
     y = np.asarray(y, np.float64).reshape(n)
     if not np.isin(y, (0.0, 1.0)).all():
@@ -220,8 +247,14 @@ def gwas_logistic(g: GenoMatrix, y: np.ndarray,
     zt = _t_pass(g, np.concatenate([(y - mu)[:, None], w[:, None], wx],
                                    axis=1))
     wcol = torch.as_tensor(w[:, None], dtype=torch.float32, device=g.device)
-    s2 = _host(packed_matmul_tall(packed_indicator2(g.zq_n),
-                                  wcol))[: g.snps, 0]
+    if isinstance(g, StreamedGeno):
+        s2 = np.concatenate([
+            _host(packed_matmul_tall(packed_indicator2(c.zq_n),
+                                     wcol))[: c.snps, 0]
+            for c in g.each_chunk()])
+    else:
+        s2 = _host(packed_matmul_tall(packed_indicator2(g.zq_n),
+                                      wcol))[: g.snps, 0]
     u, zw, a = zt[:, 0], zt[:, 1], zt[:, 2:]
     v = np.maximum(zw + 2.0 * s2 - np.einsum("sp,pq,sq->s", a, xtwx_inv, a),
                    0.0)
@@ -255,8 +288,16 @@ def gwas_mixed_loco(g: GenoMatrix, y: np.ndarray, chrom: np.ndarray,
     V_(-c) = G_(-c)/sigma2_(-c) + lam I, whose matvec is the full panel's
     minus the chromosome subset's (built with the full panel's frequencies,
     so the difference is exact); gamma is re-estimated per chromosome from
-    SNPs sampled within it, and d_s is computed once."""
-    _check_container(g)
+    SNPs sampled within it, and d_s is computed once.  A
+    :class:`StreamedGeno` raises TypeError: the LOCO operator subsets the
+    panel per chromosome."""
+    if isinstance(g, StreamedGeno):
+        raise TypeError(
+            "gwas_mixed_loco needs a device GenoMatrix (the LOCO operator "
+            "subsets the packed panel per chromosome); for out-of-core "
+            "panels run gwas_mixed per chromosome with a pre-split panel, "
+            "or materialize the panel")
+    g = _check_container(g)
     n = g.indiv
     lam = (1.0 - h2) / h2
     y = np.asarray(y, np.float64).reshape(n)

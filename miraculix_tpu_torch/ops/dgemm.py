@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
-from ..geno import GenoMatrix
+from ..geno import GenoMatrix, on_compute
 from .common import decode_planar16
 
 TALL_LIMITS = {"fast": 64, "bf16": 128, "f32": 128}  # widest tall RHS per tier
@@ -75,6 +75,7 @@ def packed_matmul_tall_plain(zq_other: torch.Tensor, b: torch.Tensor,
     bf16 mode, B itself in f32 mode), summed in float64 over contraction
     blocks and rounded to f32 once (a one-column f32 product would be one
     long f32 dot); v from B in f32."""
+    _kernels.PLAIN_CALLS["packed_matmul_tall"] += 1
     contract = b.shape[0]
     bv = rhs_values(b, TALL_RHS[mode]).to(torch.float64)
     c = torch.zeros((16 * zq_other.shape[1], b.shape[1]),
@@ -136,6 +137,7 @@ def packed_matmul_plain(zq: torch.Tensor, b: torch.Tensor, *,
                         single_bf16: bool = False) -> torch.Tensor:
     """Plain version of :func:`packed_matmul`: decode times the instance's
     RHS values, summed in float64 by row blocks and rounded to f32 once."""
+    _kernels.PLAIN_CALLS["packed_matmul"] += 1
     b = b.to(torch.float32)
     bv = rhs_values(b, wide_rhs(b.shape[1], split, single_bf16)).to(
         torch.float64)
@@ -186,6 +188,7 @@ def packed_matmul_int8_plain(zq: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`packed_matmul_int8`: decode to float64 (exact
     below 2^53), multiply and cast to int32.  (A CPU ``int8 @ int8`` would
     wrap.)"""
+    _kernels.PLAIN_CALLS["packed_matmul_int8"] += 1
     d = decode_planar16(zq, torch.float64)[:, :b.shape[0]]
     return (d @ b.to(torch.float64)).to(torch.int32)
 
@@ -342,6 +345,17 @@ def dgemm(g: GenoMatrix, b, trans: str = "n", center=True,
     caller's B and user center are taken in float64, the whole epilogue
     runs on the device in float64, and the result is numpy float64.
     """
+    c = _dgemm(on_compute(g), b, trans, center, normalize, precision,
+               ignore_missings)
+    return c.cpu().numpy() if precision == "f64" else c
+
+
+def _dgemm(g: GenoMatrix, b, trans: str = "n", center=True,
+                 normalize: bool = False, precision: str = "fast",
+                 ignore_missings: bool = True) -> torch.Tensor:
+    """:func:`dgemm` on a panel whose words live on its compute device,
+    the result left there (float64 at "f64"): the streamed container
+    accumulates its chunks' products with it."""
     trans = trans.lower()
     if trans not in ("n", "t"):
         raise ValueError(f"trans must be 'n' or 't', got {trans!r}")
@@ -393,7 +407,7 @@ def dgemm(g: GenoMatrix, b, trans: str = "n", center=True,
     if normalize:
         s2 = g.sigma2 if trans == "t" else g.pseudo_sigma2
         c = c / torch.sqrt(s2.to(dtype))
-    return c.cpu().numpy() if precision == "f64" else c
+    return c
 
 
 def _missing_correction(g: GenoMatrix, b, c, trans: str, mode: str,

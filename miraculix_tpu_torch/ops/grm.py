@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from ..geno import ROW_MULT, GenoMatrix, _device, _words, from_dense
+from ..geno import (ROW_MULT, GenoMatrix, _device, _words, from_dense,
+                    on_compute)
 from ..io import bed, codec, native
 from .common import decode_planar16, packed_row_sq_stats
 from .dgemm import dgemm
@@ -51,6 +52,7 @@ def _check_capacity(kw: int) -> None:
 def packed_crossprod_plain(zq: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`packed_crossprod`: decode to float64 (exact
     below 2^53) and multiply."""
+    _kernels.PLAIN_CALLS["packed_crossprod"] += 1
     _check_capacity(zq.shape[1])
     d = decode_planar16(zq, torch.float64)
     return (d @ d.T).to(torch.int32)
@@ -92,6 +94,7 @@ def _check_rect(zq_a: torch.Tensor, zq_b: torch.Tensor) -> None:
 def packed_crossprod_rect_plain(zq_a: torch.Tensor,
                                 zq_b: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`packed_crossprod_rect` (float64 decode)."""
+    _kernels.PLAIN_CALLS["packed_crossprod_rect"] += 1
     _check_rect(zq_a, zq_b)
     da = decode_planar16(zq_a, torch.float64)
     db = decode_planar16(zq_b, torch.float64)
@@ -121,6 +124,7 @@ def _weights(w, kw: int, device) -> torch.Tensor:
 def packed_crossprod_weighted_plain(zq: torch.Tensor, w) -> torch.Tensor:
     """Plain version of :func:`packed_crossprod_weighted`: (d w) d^T in
     float64, cast to f32."""
+    _kernels.PLAIN_CALLS["packed_crossprod_weighted"] += 1
     wmat = _weights(w, zq.shape[1], zq.device).to(torch.float64)
     d = decode_planar16(zq, torch.float64)
     return ((d * wmat.reshape(1, -1)) @ d.T).to(torch.float32)
@@ -148,6 +152,7 @@ def called_indicator_packing(g: GenoMatrix, use=None) -> torch.Tensor:
     indicator: 1 where the genotype was observed, 0 at missing entries, at
     row/column padding and at SNPs excluded by the boolean mask ``use``.
     Its crossproduct is the pairwise non-missing count matrix."""
+    g = on_compute(g)
     ipad, kw = g.zq_n.shape
     n, snps = g.indiv, g.snps
     valid = (np.arange(16)[:, None] * kw + np.arange(kw)[None, :]) < snps
@@ -176,6 +181,7 @@ def pairwise_nonmissing(g: GenoMatrix, use=None) -> torch.Tensor:
     """Pairwise non-missing SNP counts N[i, j] = #{s: called in both i and j
     (and use[s])}, exact int32 [indiv, indiv]: one crossproduct (K3) of the
     called-indicator packing."""
+    g = on_compute(g)
     ind = called_indicator_packing(g, use=use)
     return packed_crossprod(ind)[: g.indiv, : g.indiv]
 
@@ -183,6 +189,7 @@ def pairwise_nonmissing(g: GenoMatrix, use=None) -> torch.Tensor:
 def snp_crossprod(g: GenoMatrix, snpmajor_output: bool = False) -> torch.Tensor:
     """M = Z Z^T [indiv, indiv] (GRM direction), or Z^T Z [snps, snps] with
     ``snpmajor_output=True`` (LD direction); int32."""
+    g = on_compute(g)
     if snpmajor_output:
         return packed_crossprod(g.zq_t)[: g.snps, : g.snps]
     return packed_crossprod(g.zq_n)[: g.indiv, : g.indiv]
@@ -254,6 +261,7 @@ def grm(g: GenoMatrix, scale: bool = True, dtype=torch.float32,
     crossproduct of the called-indicator packing, B9) instead of the global
     2 sum p(1-p); it needs missing info, implies the correction and ignores
     ``scale``; pairs sharing no called SNP come back 0."""
+    g = on_compute(g)
     n = g.indiv
     m = snp_crossprod(g).to(dtype)
     if pair_denominator:
@@ -310,6 +318,7 @@ def ld(g: GenoMatrix, dtype=torch.float32, squared: bool = False,
     missing information) centers exactly by 2f and adds the missing
     entries' add-back D, so the crossproduct is (Zc + D)^T (Zc + D) and the
     diagonal an exact variance."""
+    g = on_compute(g)
     n = g.indiv
     m = snp_crossprod(g, snpmajor_output=True).to(dtype)
     f = g.freq.to(dtype)
@@ -344,6 +353,7 @@ def missing_indicator_packing_t(g: GenoMatrix, row0: int = 0,
     panel's device) of the MISSING indicator: 1 exactly at recorded missing
     coordinates.  Restricted to SNP rows [row0, row0 + rows_out), zero past
     the panel, so that blocked callers build only their tile's slice."""
+    g = on_compute(g)
     spad, kwi = g.zq_t.shape
     nrows = (spad - row0) if rows_out is None else rows_out
     arr = np.zeros((nrows, kwi), np.uint32)
@@ -498,6 +508,7 @@ def ld_windowed(g: GenoMatrix, window: int, row_block: int = 4096,
     three more rectangular passes of the missing-indicator packing per block
     that holds missing entries, then host float64.
     """
+    g = on_compute(g)
     snps, n = g.snps, g.indiv
     if window < 1:
         raise ValueError("window must be >= 1")
@@ -578,6 +589,7 @@ def ld_score(g: GenoMatrix, window: int = 512, row_block: int = 4096,
     correction each row block is scored on the device and only two vectors
     transfer; the corrected path scores the host band of
     :func:`ld_windowed`.  Returns float64 [snps]."""
+    g = on_compute(g)
     snps, n = g.snps, g.indiv
     window = min(window, max(snps - 1, 1))
     correct_missing = _missing_band(g, correct_missing)
@@ -623,6 +635,7 @@ def ld_prune(g: GenoMatrix, window: int = 512, r2_threshold: float = 0.2,
     the native codec (``mx_ld_prune_mask`` on the mask, ``mx_ld_prune`` on
     the corrected band), or in :func:`_ld_prune_greedy` where that is
     unavailable.  Returns a boolean keep-mask [snps]."""
+    g = on_compute(g)
     snps = g.snps
     f = _host(g.freq)
     maf = np.minimum(f, 1.0 - f)
@@ -720,7 +733,8 @@ def grm_blocked(source, row_block: int = 8192, scale: bool = True,
     a time over the full SNP axis, upper tile pairs only, accumulated into
     a host float32 matrix; the finish runs on the host in float64.
 
-    ``source``: a GenoMatrix (its device), a dense uint8 genotype matrix or
+    ``source``: a GenoMatrix (its compute device; a host-resident panel's
+    row blocks move there one at a time), a dense uint8 genotype matrix or
     a .bed path (packed on the host, a path by the fused native ingestion of
     the one packing it needs; only row blocks go to ``device``, the card
     unless named).  Missing genotypes contribute the packed-0 bias.
@@ -760,7 +774,8 @@ def ld_blocked(g: GenoMatrix, row_block: int = 8192,
                out: Optional[np.ndarray] = None) -> np.ndarray:
     """Out-of-core LD correlation (r) matrix: SNP x SNP tiles (B8 over the
     full individual axis) centered in host float64 and accumulated into a
-    host float32 matrix."""
+    host float32 matrix; a host-resident panel's row blocks move to its
+    compute device one at a time."""
     snps, n = g.snps, g.indiv
     rb = max(512, (row_block // 512) * 512)
     if out is None:
@@ -820,6 +835,7 @@ def grm_yang(g: GenoMatrix, block: int = 2048, dtype=torch.float32,
     contribute exactly 0 (GCTA's sum over called SNPs): (D W) Zc^T, its
     transpose and a host (D W) D^T.  ``block`` is kept for the reference's
     signature."""
+    g = on_compute(g)
     n = g.indiv
     f = _host(g.freq)
     pq2 = 2.0 * f * (1.0 - f)

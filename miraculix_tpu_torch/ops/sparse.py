@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..geno import GenoMatrix
+from ..geno import GenoMatrix, on_compute
 from .common import decode_planar16
 from .dgemm import packed_matmul, packed_matmul_f64, packed_matmul_tall
 
@@ -67,6 +67,7 @@ def sparse_times_geno_segsum(g: GenoMatrix, row_ptr, col_idx, vals,
     as :func:`sparse_times_geno`), f32 [n_idx, out_cols] on the panel's
     device.  Every index is checked on the host before any device work: an
     index out of range would kill a CUDA context."""
+    g = on_compute(g)
     tg, ts = trans_geno.lower(), trans_sparse.lower()
     if tg == "n":
         contract, out_cols, zq = g.indiv, g.snps, g.zq_n
@@ -108,6 +109,7 @@ def sparse_times_geno(g: GenoMatrix, row_ptr, col_idx, vals, n_idx: int,
     ``method``: "dense", "segsum" (f32 only: any other tier raises), or
     "auto", which takes segsum at n_idx > 4096 at the f32 tier only.
     Returns f32 (f64 at "f64") [n_idx, out_cols]."""
+    g = on_compute(g)
     tg, ts = trans_geno.lower(), trans_sparse.lower()
     if method == "segsum" and precision != "f32":
         raise ValueError(

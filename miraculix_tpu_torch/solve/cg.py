@@ -18,7 +18,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..geno import GenoMatrix
+from ..geno import GenoMatrix, on_compute
 from ..ops.common import packed_row_sq_stats
 from ..ops.dgemm import dgemm, packed_matmul_f64
 
@@ -35,7 +35,9 @@ def cg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     """Block conjugate gradient for SPD operators; each RHS column iterates
     with its own alpha/beta.  Stops when every column's residual norm is at
     most ``tol`` or after ``maxiter`` iterations.  ``minv`` [n] turns on
-    Jacobi preconditioning (the stop test stays on the true residual)."""
+    Jacobi preconditioning (the stop test stays on the true residual).
+    Without ``x0`` the start is 0 exactly and its residual is ``b``: no
+    operator application multiplies a zero block."""
     squeeze = b.dim() == 1
     if squeeze:
         b = b[:, None]
@@ -44,7 +46,7 @@ def cg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     def precond(r):
         return r if minv is None else minv[:, None] * r
 
-    r = b - matvec(x)
+    r = b if x0 is None else b - matvec(x)
     z = precond(r)
     p = z
     rs = torch.sum(r * r, dim=0)
@@ -66,10 +68,43 @@ def cg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     return CGResult(x[:, 0] if squeeze else x, it, torch.sqrt(rs))
 
 
+def host_pcg(op, b, tol, maxiter, minv=None):
+    """Host-driven float64 Jacobi-PCG on an SPD numpy operator: the loop of
+    the out-of-core panels, whose operator streams chunks through the
+    device.  ``tol`` is absolute on the residual 2-norm, as in :func:`cg`;
+    x starts at 0 exactly, so ``op`` never multiplies a zero block.
+    Returns ``(x, iterations, residual_norms)``."""
+    b = np.asarray(b, np.float64)
+    squeeze = b.ndim == 1
+    if squeeze:
+        b = b[:, None]
+    x = np.zeros_like(b)
+    r = b.copy()
+    z = r if minv is None else minv[:, None] * r
+    p = z.copy()
+    rs = (r * r).sum(axis=0)
+    rz = (r * z).sum(axis=0)
+    it = 0
+    while it < maxiter and (np.sqrt(rs) > tol).any():
+        ap = op(p)
+        denom = (p * ap).sum(axis=0)
+        alpha = np.where(denom > 0, rz / np.maximum(denom, 1e-300), 0.0)
+        x += alpha * p
+        r -= alpha * ap
+        z = r if minv is None else minv[:, None] * r
+        rs = (r * r).sum(axis=0)
+        rz_new = (r * z).sum(axis=0)
+        p = z + np.where(rz > 0, rz_new / np.maximum(rz, 1e-300), 0.0) * p
+        rz = rz_new
+        it += 1
+    return (x[:, 0] if squeeze else x), it, np.sqrt(rs)
+
+
 def grm_diag(g: GenoMatrix, center: bool = True,
              scale: bool = False) -> torch.Tensor:
     """diag(Z_c Z_c^T) exactly, without forming G:
     diag[i] = sum z^2 - 4 sum_s f_s z_is + 4 sum_s f_s^2."""
+    g = on_compute(g)
     d = packed_row_sq_stats(g.zq_n)[: g.indiv]
     if center:
         f = g.freq
@@ -89,6 +124,7 @@ def grm_matvec(g: GenoMatrix, v: torch.Tensor, center: bool = True,
                scale: bool = False, precision: str = "fast") -> torch.Tensor:
     """G v with G the (optionally VanRaden-scaled) relationship matrix, as
     two packed products."""
+    g = on_compute(g)
     zv = dgemm(g, v, trans="t", center=center, precision=precision)
     gv = dgemm(g, zv, trans="n", center=center, precision=precision)
     if scale:
@@ -102,6 +138,7 @@ def grm_cg_solve(g: GenoMatrix, b, lam=0.0, center: bool = True,
                  precondition: bool = False) -> CGResult:
     """Solve (G + lam I) x = b, G = Z_c Z_c^T (optionally / sigma^2).
     ``lam`` is a runtime value: a sweep over it rebuilds nothing."""
+    g = on_compute(g)
     b = torch.as_tensor(b, dtype=torch.float32, device=g.device)
     lam = torch.as_tensor(lam, dtype=torch.float32, device=g.device)
 
@@ -119,6 +156,7 @@ def grm_matvec_f64(g: GenoMatrix, v, center: bool = True,
     """G v in float64: both packed products through the exact digit tier,
     the centering epilogue in float64, all on the panel's device (~1e-15
     relative).  Returns numpy float64."""
+    g = on_compute(g)
     v = torch.as_tensor(v, dtype=torch.float64, device=g.device)
     squeeze = v.dim() == 1
     if squeeze:
@@ -149,6 +187,7 @@ def grm_cg_solve_refined(g: GenoMatrix, b, lam: float = 0.0,
 
     Returns ``(x, outer_iters, inner_iters_total, rel_residual)``, ``x``
     and ``rel_residual`` (per column, relative to |b|) numpy float64."""
+    g = on_compute(g)
     b = np.asarray(b, np.float64)
     squeeze = b.ndim == 1
     if squeeze:

@@ -23,9 +23,11 @@ pedigree relationship among genotyped animals.  Nothing is densified:
 The CGs are the port's :func:`solve.cg.cg`, nested three deep (the MME CG,
 and Gw^-1's and A11^-1's inside every H^-1 apply); each reads its stop test
 to the host once an iteration.  The device work is float32, the REML glue
-numpy float64, as in the reference.  Only a :class:`GenoMatrix` panel is
-ported: the streamed and sharded containers raise NotImplementedError
-(ROADMAP A12-A13).
+numpy float64, as in the reference.  On an out-of-core
+:class:`StreamedGeno` (``SingleStepHInv._kind == "streamed"``), Gw^-1 is
+the container's host PCG and the MME's outer CG is
+:func:`solve.cg.host_pcg`, each matvec streaming the chunks, as in the reference; the sharded containers
+raise NotImplementedError (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -37,38 +39,8 @@ import torch
 from .gblup import _check_container
 from .geno import from_bed
 from .pedigree import SparseCOO, a_inverse, check_pedigree, read_pedigree
-from .solve.cg import cg, grm_diag, grm_matvec
-
-
-def _host_pcg(op, b, tol, maxiter, minv=None):
-    """Host-driven Jacobi-PCG on an SPD numpy operator: the outer loop for
-    out-of-core panels, whose operator streams chunks through the device.
-    ``tol`` is absolute on the residual 2-norm, as in :func:`solve.cg.cg`.
-    Returns ``(x, iterations, residual_norms)``."""
-    b = np.asarray(b, np.float64)
-    squeeze = b.ndim == 1
-    if squeeze:
-        b = b[:, None]
-    x = np.zeros_like(b)
-    r = b.copy()                      # x = 0 exactly: skip op(0)
-    z = r if minv is None else minv[:, None] * r
-    p = z.copy()
-    rs = (r * r).sum(axis=0)
-    rz = (r * z).sum(axis=0)
-    it = 0
-    while it < maxiter and (np.sqrt(rs) > tol).any():
-        ap = op(p)
-        denom = (p * ap).sum(axis=0)
-        alpha = np.where(denom > 0, rz / np.maximum(denom, 1e-300), 0.0)
-        x += alpha * p
-        r -= alpha * ap
-        z = r if minv is None else minv[:, None] * r
-        rs = (r * r).sum(axis=0)
-        rz_new = (r * z).sum(axis=0)
-        p = z + np.where(rz > 0, rz_new / np.maximum(rz, 1e-300), 0.0) * p
-        rz = rz_new
-        it += 1
-    return (x[:, 0] if squeeze else x), it, np.sqrt(rs)
+from .solve.cg import cg, grm_diag, grm_matvec, host_pcg
+from .streamed import StreamedGeno
 
 
 def _normalized_cg(matvec, b, tol, maxiter, minv=None):
@@ -111,7 +83,8 @@ class SingleStepHInv:
                  blend: float = 0.05, tau: float = 1.0, omega: float = 1.0,
                  inner_tol: float = 1e-6, inner_maxiter: int = 1000,
                  f: Optional[np.ndarray] = None):
-        _check_container(g)
+        g = _check_container(g)
+        self._kind = "streamed" if isinstance(g, StreamedGeno) else "geno"
         n = check_pedigree(sire, dam)
         geno_ids = np.asarray(geno_ids, np.int64)
         if geno_ids.min() < 1 or geno_ids.max() > n:
@@ -146,7 +119,8 @@ class SingleStepHInv:
         self.geno_rows = torch.as_tensor(geno_ids - 1, device=self.device)
 
         self._sigma2 = float(g.sigma2)
-        gd = grm_diag(g, center=True)
+        gd = (self._vec(g.grm_diag(center=True)) if self._kind == "streamed"
+              else grm_diag(g, center=True))
         self._gw_diag = (1.0 - blend) * gd / self._sigma2 + blend
         self._gw_minv = 1.0 / self._gw_diag
         a11d = self.a11.diag()
@@ -162,7 +136,21 @@ class SingleStepHInv:
         return (1.0 - self.blend) * gv + self.blend * v2
 
     def gw_inv(self, v2) -> torch.Tensor:
-        """Gw^-1 v2 by Jacobi-preconditioned CG on the packed panel."""
+        """Gw^-1 v2 by Jacobi-preconditioned CG on the packed panel.
+
+        A streamed panel solves on the container's host PCG (each matvec
+        one pass over the chunks): Gw x = b rewrites to (G / sigma2 +
+        blend / (1 - blend) I) x = b / (1 - blend), its operator."""
+        if self._kind == "streamed":
+            if self.blend >= 1.0:              # Gw = I
+                return self._vec(v2)
+            b = torch.as_tensor(v2).cpu().numpy().astype(np.float64)
+            x, _, _ = self.g.cg_solve(
+                b / (1.0 - self.blend),
+                lam=self.blend / (1.0 - self.blend), scale=True,
+                tol=self.inner_tol, maxiter=self.inner_maxiter,
+                precondition=True)
+            return self._vec(x)
         return _normalized_cg(self._gw, self._vec(v2), self.inner_tol,
                               self.inner_maxiter, minv=self._gw_minv)
 
@@ -223,6 +211,22 @@ def _design(y, obs_ids, x):
     return y, obs_ids, x
 
 
+def _mme_host(hinv, obs0, x, lam):
+    """z [p + n, k] -> C(lam) z in numpy float64, every H^-1 apply on the
+    device: the operator of a streamed panel's host outer CG."""
+    n, p = hinv.n, x.shape[1]
+
+    def mme(z):
+        beta, u = z[:p], z[p:]
+        fitted = x @ beta + u[obs0]
+        bottom = np.zeros((n, z.shape[1]))
+        np.add.at(bottom, obs0, fitted)
+        hu = hinv.matvec(u).cpu().numpy().astype(np.float64)
+        return np.concatenate([x.T @ fitted, bottom + lam * hu])
+
+    return mme
+
+
 def _mme_operator(hinv, obs, xj):
     """z [p + n, k] -> C(lam) z for the MME [[X'X, X'W], [W'X, W'W + lam
     H^-1]], and the Jacobi diagonal's parts (X'X's, W'W's and
@@ -258,7 +262,9 @@ def ssgblup(
     1..n_obs); repeated records per animal are allowed.  ``x``: fixed
     design [n_obs, p] (default intercept).  One outer Jacobi block-CG on
     the normalized RHS; every H^-1 application is the nested operator
-    above.
+    above.  On a streamed panel the outer CG is :func:`solve.cg.host_pcg` in
+    numpy float64 (each H^-1 apply streams the chunks), as in the
+    reference.
     """
     n = hinv.n
     y, obs_ids, x = _design(y, obs_ids, x)
@@ -274,6 +280,16 @@ def ssgblup(
     rhs = torch.cat([xj.T @ yj, yj.new_zeros(n).index_add_(0, obs, yj)])
     minv = 1.0 / torch.cat([xdiag, counts + lam * dapp])
 
+    if hinv._kind == "streamed":
+        b = rhs.cpu().numpy().astype(np.float64)
+        scale = float(np.linalg.norm(b))
+        xs, iters, resid = host_pcg(
+            _mme_host(hinv, obs_ids - 1, x, lam), b / scale, tol, maxiter,
+            minv=minv.cpu().numpy().astype(np.float64))
+        z = xs * scale
+        return SSGBLUPResult(z[:p], z[p:], int(iters),
+                             float(np.max(resid)) * scale)
+
     scale = float(torch.linalg.norm(rhs))
     res = cg(lambda z: mme(z, lam), rhs / scale, tol=tol, maxiter=maxiter,
              minv=minv)
@@ -286,8 +302,26 @@ def _mme_solver(hinv: SingleStepHInv, obs, xj, tol: float, maxiter: int):
     """The MME solve C(lam) Z = RHS for a block RHS and a runtime lambda,
     columns normalized so the absolute CG tolerance acts relatively.
     Returns ``solve(lam, rhs) -> (Z, iterations)``, float32 on the
-    device."""
+    device; on a streamed panel the host outer CG's float64 on the CPU."""
     mme, xdiag, counts, dapp = _mme_operator(hinv, obs, xj)
+
+    if hinv._kind == "streamed":
+        obs0 = obs.cpu().numpy()
+        x = xj.cpu().numpy().astype(np.float64)
+        parts = [t.cpu().numpy().astype(np.float64)
+                 for t in (xdiag, counts, dapp)]
+
+        def solve_host(lam, rhs):
+            lam = float(lam)
+            rhs = rhs.cpu().numpy().astype(np.float64)
+            minv = 1.0 / np.concatenate([parts[0], parts[1] + lam * parts[2]])
+            norm = np.linalg.norm(rhs, axis=0, keepdims=True)
+            safe = np.where(norm > 0, norm, 1.0)
+            xs, iters, _ = host_pcg(_mme_host(hinv, obs0, x, lam),
+                                    rhs / safe, tol, maxiter, minv=minv)
+            return torch.from_numpy(xs * safe), iters
+
+        return solve_host
 
     def solve(lam, rhs):
         lam = float(lam)
@@ -474,17 +508,20 @@ def run_ssgblup(bed_path: str, pedigree_path: str,
     - ``pheno_path``: two-column file (animal label, value); phenotypes
       may cover any pedigree animal, genotyped or not.  Defaults to the
       .fam 6th column (genotyped animals only; -9 = missing).
-    - ``stream_chunk`` > 0 (the out-of-core container) is not ported yet.
-    - ``device``: where the panel goes (the CUDA card unless named).
+    - ``stream_chunk`` > 0: ingest the panel as a :class:`StreamedGeno` in
+      SNP chunks of that size: panels beyond the card's memory solve out of
+      core (the host-driven outer CG).
+    - ``device``: where the panel goes, or computes when streamed (the
+      CUDA card unless named).
 
     Writes a TSV of EBVs for every pedigree animal.
     """
-    if stream_chunk > 0:
-        raise NotImplementedError(
-            "stream_chunk > 0: the streamed container is not ported yet "
-            "(ROADMAP A12)")
     sire, dam, labels = read_pedigree(pedigree_path)
-    g = from_bed(bed_path, device=device)
+    if stream_chunk > 0:
+        g = StreamedGeno.from_bed(bed_path, chunk_snps=stream_chunk,
+                                  device=device)
+    else:
+        g = from_bed(bed_path, device=device)
     with open(bed_path[:-4] + ".fam") as fh:
         fam = [ln.split() for ln in fh if ln.strip()]
     iids = [f[1] for f in fam]

@@ -914,3 +914,135 @@ def test_single_step_matches_cpu(dev, n_anim, n_geno, snps):
     assert abs(res_g.iterations - res_c.iterations) <= 2
     assert abs(h2_g - h2_c) < 1e-3 and det_g["iterations"] == \
         det_c["iterations"]
+
+
+def _streamed_fileset(tmp_path, indiv, snps, seed):
+    from miraculix_tpu_torch.io import bed
+
+    path = str(tmp_path / "s.bed")
+    bed.write_bed(path, bed.simulate_genotypes(indiv, snps, seed=seed,
+                                               missing_rate=0.02))
+    return path
+
+
+def test_streamed_chunks_are_pinned(dev, tmp_path):
+    import miraculix_tpu_torch as mt
+
+    path = _streamed_fileset(tmp_path, 300, 1000, 1)
+    sg = mt.StreamedGeno.from_bed(path, chunk_snps=300, device=dev)
+    host = mt.from_bed(path, device_put=False, device=dev)
+    for g in sg.chunks + [host]:
+        assert g.host_resident and g.device.type == "cuda"
+        for t in (g.zq_n, g.zq_t, g.freq, g.pseudo_freq):
+            assert t.device.type == "cpu" and t.is_pinned()
+
+
+@pytest.mark.parametrize("indiv,snps,chunk", [(300, 1000, 300),
+                                              (257, 2049, 512),
+                                              (1000, 700, 129)])
+def test_half_cached_streamed_matches_resident(dev, tmp_path, indiv, snps,
+                                               chunk):
+    """Half the chunks cached, the rest streaming through the staging
+    buffers on the side stream, at ragged chunk sizes: the products of the
+    resident panel ('t' bit for bit, 'n' and the matvec to f32 partials);
+    every chunk product one kernel launch and no plain version called."""
+    import miraculix_tpu_torch as mt
+    from miraculix_tpu_torch import streamed
+
+    path = _streamed_fileset(tmp_path, indiv, snps, indiv + snps)
+    sg = mt.StreamedGeno.from_bed(path, chunk_snps=chunk, device=dev)
+    res = mt.from_bed(path, device=dev)
+    half = sg.n_chunks // 2
+    assert sg.cache_to_device(sum(c.nbytes for c in sg.chunks[:half])) \
+        == half
+    rng = np.random.default_rng(indiv)
+    x = rng.standard_normal((indiv, 3)).astype(np.float32)
+    bn = rng.standard_normal((snps, 70)).astype(np.float32)   # the wide one
+    streamed.reset_stream_counts()
+    _kernels.reset_launch_counts()
+    mv = sg.grm_matvec(x)
+    got_t = sg.dgemm(x, trans="t")
+    got_n = sg.dgemm(bn, trans="n", center="colmeans")
+    got_64 = sg.dgemm(bn[:, :12].astype(np.float64), trans="n",
+                      precision="f64")
+    launched = sum(_kernels.LAUNCHES.values())
+    assert launched == streamed.STREAM["products"] == sg.n_chunks * 5
+    assert sum(_kernels.PLAIN_CALLS.values()) == 0
+    assert streamed.STREAM["h2d_copies"] == 4 * (sg.n_chunks - half)
+    assert streamed.copy_seconds() > 0
+    want = mt.grm_matvec(res, torch.from_numpy(x).to(dev)).cpu().numpy()
+    assert np.abs(mv - want).max() <= 1e-6 * np.abs(want).max()
+    np.testing.assert_array_equal(
+        got_t, mt.dgemm(res, x, trans="t").cpu().numpy())
+    want = mt.dgemm(res, bn, trans="n", center="colmeans").cpu().numpy()
+    assert np.abs(got_n - want).max() <= 1e-6 * np.abs(want).max()
+    want = mt.dgemm(res, bn[:, :12].astype(np.float64), trans="n",
+                    precision="f64")
+    assert np.abs(got_64 - want).max() <= 1e-12 * np.abs(want).max()
+
+
+def test_side_stream_copy_matches_synchronous_copy(dev, tmp_path):
+    """The overlapped pass (copies on the side stream, events) gives what
+    the same pass gives with every chunk copied synchronously first, over
+    many passes that reuse both staging buffers."""
+    import miraculix_tpu_torch as mt
+    from miraculix_tpu_torch.geno import _moved
+
+    path = _streamed_fileset(tmp_path, 512, 3000, 9)
+    sg = mt.StreamedGeno.from_bed(path, chunk_snps=400, device=dev)
+    sync = [_moved(c, dev) for c in sg.chunks]
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(2)
+    for _ in range(3):
+        x = torch.as_tensor(rng.standard_normal((512, 2)),
+                            dtype=torch.float32, device=dev)
+        got = sg.grm_matvec(x)
+        want = torch.zeros_like(got)
+        for g in sync:
+            want += mt.dgemm(g, mt.dgemm(g, x, trans="t"), trans="n")
+        assert torch.equal(got, want)
+
+
+def test_cache_to_device_default_budget_is_read_once(dev, tmp_path,
+                                                     monkeypatch):
+    """With no budget, cache_to_device() takes half the free memory of its
+    first call: a second call, after the cached chunks lowered the free
+    memory, keeps the same chunks and returns the same count."""
+    import miraculix_tpu_torch as mt
+
+    path = _streamed_fileset(tmp_path, 512, 3200, 11)
+    sg = mt.StreamedGeno.from_bed(path, chunk_snps=400, device=dev)
+    total = sg.nbytes()
+
+    def mem_get_info(device=None):     # 1.1 panels free before caching
+        held = sum(c.nbytes for c in sg.chunks if not c.host_resident)
+        return int(1.1 * total) - held, 80 << 30
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info", mem_get_info)
+    first = sg.cache_to_device()
+    assert first == 4 and sg.n_chunks == 8
+    assert sg.cache_to_device() == first
+    assert sum(not c.host_resident for c in sg.chunks) == first
+
+
+def test_host_resident_panel_launches_kernels_only(dev, tmp_path):
+    """A host-resident GenoMatrix whose compute device is the card: each
+    call copies it there and launches the kernels, never a plain version."""
+    import miraculix_tpu_torch as mt
+    from miraculix_tpu_torch import gblup
+
+    path = _streamed_fileset(tmp_path, 300, 1000, 4)
+    host = mt.from_bed(path, device_put=False, device=dev)
+    res = mt.from_bed(path, device=dev)
+    y = np.random.default_rng(5).standard_normal(300)
+    _kernels.reset_launch_counts()
+    got = (mt.dgemm(host, np.ones((1000, 2), np.float32)),
+           mt.grm(host), gblup.gblup(host, y, n_pcs=2).g_hat)
+    assert _kernels.LAUNCHES["tall_dgemm_cv"] > 0
+    assert _kernels.LAUNCHES["crossprod"] > 0
+    assert sum(_kernels.PLAIN_CALLS.values()) == 0
+    assert got[0].device.type == "cuda"
+    want = (mt.dgemm(res, np.ones((1000, 2), np.float32)), mt.grm(res),
+            gblup.gblup(res, y, n_pcs=2).g_hat)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])

@@ -212,12 +212,26 @@ def test_row_mult_equals_reference(fileset):
 
 @pytest.mark.parametrize("entry", ["from_dense", "from_bed", "from_plink"])
 def test_device_put_false_is_not_ported(fileset, entry):
+    """Named before host-resident panels were ported: ``device_put=False``
+    now gives the reference's words and frequencies kept in host memory,
+    with ``device`` the compute device, and its products equal the
+    resident panel's."""
     path, g = fileset
     args = {"from_dense": (g,), "from_bed": (path,),
             "from_plink": (pt_codec.dense_to_plink(g), g.shape[1],
                            g.shape[0])}[entry]
-    with pytest.raises(NotImplementedError, match="A12"):
-        getattr(mt, entry)(*args, device_put=False, device=CPU)
+    host = getattr(mt, entry)(*args, device_put=False, device=CPU)
+    resident = getattr(mt, entry)(*args, device=CPU)
+    ref = getattr(mx, entry)(*args, device_put=False)
+    assert host.host_resident and not resident.host_resident
+    assert host.device == torch.device(CPU) and host.zq_n.device.type == CPU
+    _same_words(host, ref)
+    rng = np.random.default_rng(1)
+    for trans, rows in (("n", g.shape[1]), ("t", g.shape[0])):
+        rhs = rng.standard_normal((rows, 3))
+        np.testing.assert_array_equal(
+            mt.dgemm(host, rhs, trans=trans).numpy(),
+            mt.dgemm(resident, rhs, trans=trans).numpy())
 
 
 def test_grm_blocked_from_bed_path(fileset):

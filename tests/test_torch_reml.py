@@ -268,10 +268,21 @@ def test_run_gblup_fam_phenotypes(panel, tmp_path, head, rest, message):
 
 
 def test_run_gblup_rejects_stream_chunk(panel, tmp_path):
+    """Named before the streamed container was ported: ``stream_chunk``
+    now reads the panel as a StreamedGeno (3 chunks here), and the run
+    writes the marker effects of the resident run (phenotypes simulated
+    from the first 1,024 SNPs: here the whole panel, as resident)."""
     path = str(tmp_path / "s.bed")
     ref_bed.write_bed(path, panel[0])
-    with pytest.raises(NotImplementedError, match="A12"):
-        pt_gblup.run_gblup(path, stream_chunk=256, device=CPU)
+    eff = {}
+    for chunk in (0, 300):
+        out = str(tmp_path / f"eff{chunk}.tsv")
+        rc, text = _run(pt_gblup.run_gblup, path, pcs=0, stream_chunk=chunk,
+                        effects_out=out, device=CPU)
+        assert rc == 0
+        eff[chunk] = np.loadtxt(out, skiprows=1, usecols=2)
+    assert "streamed panel: 800 snps x 160 indiv, 3 chunks" in text
+    assert _rel(eff[300], eff[0]) < RTOL
 
 
 @pytest.mark.parametrize("fn", [
@@ -281,7 +292,7 @@ def test_run_gblup_rejects_stream_chunk(panel, tmp_path):
     lambda g, y: pt_gblup._ridge_solver(g, 1e-5, 10),
 ], ids=["he", "reml", "cross_validate", "ridge_solver"])
 def test_unported_containers_raise(panel, fn):
-    with pytest.raises(NotImplementedError, match="A12-A13"):
+    with pytest.raises(NotImplementedError, match="A13"):
         fn(object(), panel[3])
 
 

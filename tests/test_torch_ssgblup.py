@@ -28,6 +28,7 @@ from miraculix_tpu.ops import ref_impl  # noqa: E402
 
 import miraculix_tpu_torch as mt  # noqa: E402
 from miraculix_tpu_torch import ssgblup as ss  # noqa: E402
+from miraculix_tpu_torch.solve.cg import host_pcg  # noqa: E402
 
 CPU = "cpu"
 N_ANIM, N_GENO, N_SNPS = 120, 48, 600
@@ -235,12 +236,12 @@ def test_host_pcg_equals_reference():
     b = rng.standard_normal((40, 3))
     minv = 1.0 / np.diag(a)
     for args in ((b, 1e-10, 200), (b[:, 0], 1e-6, 5)):
-        got = ss._host_pcg(lambda z: a @ z, *args, minv=minv)
+        got = host_pcg(lambda z: a @ z, *args, minv=minv)
         want = ref._host_pcg(lambda z: a @ z, *args, minv=minv)
         np.testing.assert_array_equal(got[0], want[0])
         assert got[1] == want[1]
         np.testing.assert_array_equal(got[2], want[2])
-    x, it, res = ss._host_pcg(lambda z: a @ z, b, 1e-10, 200)
+    x, it, res = host_pcg(lambda z: a @ z, b, 1e-10, 200)
     assert res.max() <= 1e-10 and np.abs(a @ x - b).max() < 1e-9
 
 
@@ -349,11 +350,12 @@ def test_run_ssgblup_reads_the_fam_phenotypes(tmp_path):
 
 
 def test_unported_containers_raise(panel, tmp_path):
-    with pytest.raises(NotImplementedError, match="A12-A13"):
+    """The sharded containers are not ported (ROADMAP A13); the streamed
+    one and ``run_ssgblup(stream_chunk=)`` are, and
+    tests/test_torch_streamed_paths.py holds them to the reference."""
+    with pytest.raises(NotImplementedError, match="A13"):
         ss.SingleStepHInv(panel["sire"], panel["dam"], object(),
                           panel["geno_ids"])
-    with pytest.raises(NotImplementedError, match="A12"):
-        ss.run_ssgblup("g.bed", "ped.txt", stream_chunk=128, device=CPU)
 
 
 def test_every_public_function_of_the_reference():
