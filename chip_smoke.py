@@ -126,6 +126,22 @@ codec of ``miraculix_tpu_torch/io/native`` and
    the LD and GRM families with and without the missing corrections on a
    panel with 2% missing genotypes), at 1e-3 (h2 and its SE: absolute), or
    1e-12 for the f64 tier.
+9. runs the out-of-core ``StreamedGeno`` on the many_indiv fileset and on
+   the "ssgblup" cell's panel, each call held to the resident one;
+10. runs the parallel layer in a world-1 NCCL group (a FileStore beside
+   the fileset) on a 1D mesh of 4 SNP shards and a 2 x 2 mesh, all on the
+   one card, at full width: ``shard_genotypes_from_bed`` (each shard's
+   range read alone; words bit-equal to ``shard_genotypes`` of the dense
+   panel, frequencies to the resident ``from_bed``'s), ``sharded_dgemm``
+   'n' and 't' at 1, 32 and 65 columns (1e-5 of max), the raw sharded
+   crossproduct replicated and scattered (exactly equal to K3 on the
+   resident panel) and ``sharded_grm`` (1e-5), ``sharded_cg_solve``,
+   ``gblup`` and ``estimate_h2_reml`` on the ShardedGeno, the four GWAS
+   scans (1e-4), the 2D products, raw crossproduct, CG and 4-trait REML,
+   ``save_sharded``/``load_sharded``, and ``ssgblup`` on the "ssgblup"
+   cell sharded 4 ways; each call beside the resident one with its
+   launches, no plain version, and its collectives' calls and bytes; the
+   group is destroyed before the phase ends.
 
 Earlier lines report the compiler's registers and spills (and, for the
 integer, wide and weighted kernels, their shared memory and resident blocks
@@ -927,6 +943,294 @@ def streamed_phase(dev, sync_time, take_counts, bed_path, y, yb, cov, qtl,
     log(f"phase 9 (streamed) total: {time.perf_counter() - t_phase:.3f} s")
 
 
+def sharded_phase(dev, sync_time, take_counts, bed_path, y, yb, cov, chrom,
+                  resident, secs_of, cell):
+    """Phase 10: the parallel layer on one card, in a world-1 process group
+    (NCCL on the card) made through a FileStore beside the fileset: a 1D
+    mesh of 4 SNP shards and a 2 x 2 mesh, both on the one device, at
+    full width (many_indiv: 4 shards of 16,384 SNPs; the "ssgblup" cell
+    sharded 4 ways).  Each call is counted from zero (its kernel launches,
+    no plain version, its collectives' calls and bytes), timed beside the
+    resident call and held to it; the group is destroyed before the phase
+    ends."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from miraculix_tpu_torch import (_kernels, dgemm, from_bed, gblup, grm,
+                                     grm_cg_solve, grm_matvec, gwas_linear,
+                                     gwas_logistic, gwas_mixed,
+                                     gwas_mixed_loco, packed_crossprod,
+                                     parallel)
+    from miraculix_tpu_torch import ssgblup as ssg
+    from miraculix_tpu_torch.io import bed
+    from miraculix_tpu_torch.parallel import sharded, sharded2d
+
+    t_phase = time.perf_counter()
+    store = os.path.join(os.path.dirname(bed_path), "sharded.store")
+    backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+    parallel.init_distributed(num_processes=1, process_id=0,
+                              backend=backend, init_method=f"file://{store}",
+                              device_id=dev if backend == "nccl" else None)
+    log(f"phase sharded: init_distributed({backend}) world "
+        f"{dist.get_world_size()}, rank {dist.get_rank()}")
+
+    def call(name, fn, ref_secs=None):
+        _kernels.reset_launch_counts()
+        parallel.reset_collective_counts()
+        out, secs = sync_time(fn)
+        counts = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+        plain = dict(_kernels.PLAIN_CALLS)
+        colls = {k: (v["calls"], v["bytes"])
+                 for k, v in parallel.COLLECTIVES.items()}
+        take_counts(f"sharded {name}")
+        ref = "n/a" if ref_secs is None else f"{ref_secs:.3f} s"
+        log(f"phase sharded {name}: {secs:.3f} s (resident {ref}); "
+            f"launches {counts}; collectives (calls, bytes) {colls}")
+        check(not plain, f"sharded {name}: plain versions ran: {plain}")
+        return out, secs
+
+    def rel(got, want):
+        got = torch.as_tensor(got).double().cpu()
+        want = torch.as_tensor(want).double().cpu()
+        return float((got - want).abs().max() / want.abs().max())
+
+    try:
+        mesh = parallel.make_mesh(devices=[dev] * 4)
+        mesh2 = parallel.make_mesh_2d(devices=[dev] * 4)
+        check(mesh.shape == {"k": 4} and mesh2.shape == {"i": 2, "k": 2},
+              "sharded meshes")
+
+        # -- 10a. ingestion: each shard's SNP range read alone -------------
+        gm, rsecs = sync_time(lambda: from_bed(bed_path, device=dev))
+        reads = []
+        orig = bed.read_bed_slice_payload
+
+        def instrumented(path, s0, s1):
+            reads.append((s0, s1))
+            return orig(path, s0, s1)
+
+        bed.read_bed_slice_payload = instrumented
+        try:
+            sg, _ = call("shard_genotypes_from_bed", lambda: (
+                parallel.shard_genotypes_from_bed(bed_path, mesh)), rsecs)
+        finally:
+            bed.read_bed_slice_payload = orig
+        spd = sg.spd
+        t0 = time.perf_counter()
+        dense, _ = bed.read_bed_genotypes(bed_path)
+        sd = parallel.shard_genotypes(dense, mesh)
+        t_dense = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(
+            sg.zq_n + sg.zq_t + sg.freq, sd.zq_n + sd.zq_t + sd.freq))
+        fsame = np.array_equal(sg.global_freq()[: N_SNPS],
+                               gm.freq.cpu().numpy())
+        log(f"check sharded ingestion: {len(reads)} reads {reads} (spd "
+            f"{spd}); words bit-equal to shard_genotypes of the dense panel "
+            f"({t_dense:.3f} s to read and pack it): {same}; freq bit-equal "
+            f"to the resident from_bed: {fsame}")
+        check(reads == [(j * spd, (j + 1) * spd) for j in range(4)]
+              and same and fsame, "sharded ingestion")
+        del dense, sd
+
+        # -- 10b. the products ---------------------------------------------
+        prng = np.random.default_rng(SEED + 30)
+        for trans, rows in (("n", N_SNPS), ("t", N_INDIV)):
+            for ncol in (1, 32, 65):
+                b = torch.as_tensor(prng.standard_normal((rows, ncol)),
+                                    dtype=torch.float32, device=dev)
+                want, rsecs = sync_time(lambda: dgemm(gm, b, trans=trans))
+                out, _ = call(f"sharded_dgemm {trans} ncol={ncol}",
+                              lambda: parallel.sharded_dgemm(sg, b, trans),
+                              rsecs)
+                got = out if trans == "n" else torch.cat(out.blocks)[
+                    : N_SNPS]
+                r = rel(got, want)
+                log(f"check sharded_dgemm {trans} ncol={ncol} vs resident: "
+                    f"rel={r:.3g}")
+                check(r <= KERNEL_RTOL, f"sharded_dgemm {trans} {ncol}")
+
+        # -- 10c. the GRM: raw exactly, finished to 1e-5 ---------------------
+        raw_r, rsecs = sync_time(lambda: packed_crossprod(gm.zq_n))
+        raw, _ = call("sharded raw crossproduct",
+                      lambda: sharded.sharded_crossprod(sg), rsecs)
+        check(torch.equal(raw, raw_r), "sharded raw crossproduct")
+        raws, _ = call("sharded raw crossproduct scatter=True",
+                       lambda: sharded.sharded_crossprod(sg, scatter=True))
+        check(torch.equal(torch.cat(raws.blocks), raw_r),
+              "sharded raw crossproduct, scattered")
+        del raw, raws
+        g_r, rsecs = sync_time(lambda: grm(gm))
+        g_s, _ = call("sharded_grm", lambda: parallel.sharded_grm(sg), rsecs)
+        r1 = rel(g_s, g_r)
+        del g_s
+        g_sc, _ = call("sharded_grm scatter=True",
+                       lambda: parallel.sharded_grm(sg, scatter=True))
+        r2 = rel(torch.cat(g_sc.blocks)[:N_INDIV, :N_INDIV], g_r)
+        log(f"check sharded_grm vs resident grm(): rel={r1:.3g}, scatter "
+            f"rel={r2:.3g}; raw crossproducts exactly equal")
+        check(r1 <= KERNEL_RTOL and r2 <= KERNEL_RTOL, "sharded_grm")
+        del g_sc, g_r
+        torch.cuda.empty_cache()
+
+        # -- 10d. CG, GBLUP, REML ------------------------------------------
+        rhs = torch.as_tensor(prng.standard_normal(N_INDIV),
+                              dtype=torch.float32, device=dev)
+        lam = 0.5 * float(gm.sigma2)
+        w, rsecs = sync_time(lambda: grm_cg_solve(
+            gm, rhs, lam=lam, tol=1e-3, precondition=True))
+        r, _ = call("sharded_cg_solve precondition=True",
+                    lambda: parallel.sharded_cg_solve(
+                        sg, rhs, lam=lam, tol=1e-3, precondition=True),
+                    rsecs)
+        d = rel(r.x, w.x)
+        log(f"check sharded_cg_solve vs resident: x rel={d:.3g}, iterations "
+            f"{r.iterations} (resident {w.iterations})")
+        check(d <= 1e-4 and abs(r.iterations - w.iterations) <= 2,
+              "sharded_cg_solve")
+        x1 = rhs[:, None]
+        reps = 10
+        _, rsecs = sync_time(lambda: [grm_matvec(gm, x1)
+                                      for _ in range(reps)])
+        _, secs = sync_time(lambda: [parallel.sharded_grm_matvec(sg, x1)
+                                     for _ in range(reps)])
+        log(f"phase sharded grm_matvec ncol=1: {1e3 * secs / reps:.3f} ms "
+            f"(resident {1e3 * rsecs / reps:.3f} ms; mean of {reps})")
+        device_busy("sharded grm_matvec ncol=1",
+                    lambda: parallel.sharded_grm_matvec(sg, x1))
+        device_busy("resident grm_matvec ncol=1", lambda: grm_matvec(gm, x1))
+        res, _ = call("gblup", lambda: gblup.gblup(sg, y, h2=0.5, n_pcs=10),
+                      secs_of["gblup"])
+        d = rel(res.g_hat, resident["gblup"])
+        log(f"  sharded gblup: cg_iterations={res.cg_iterations} (resident "
+            f"{resident['gblup iterations']}), converged={res.converged}; "
+            f"g_hat vs resident rel={d:.3g}")
+        check(res.converged and d <= 1e-3 and abs(
+            res.cg_iterations - resident["gblup iterations"]) <= 2,
+              "sharded gblup")
+        (h2r, det), _ = call("estimate_h2_reml", lambda: (
+            gblup.estimate_h2_reml(sg, y)), secs_of["estimate_h2_reml"])
+        d = abs(h2r - resident["estimate_h2_reml"])
+        log(f"  sharded estimate_h2_reml: h2={h2r:.4f} (resident "
+            f"{resident['estimate_h2_reml']:.4f}, |diff| {d:.3g}), AI steps "
+            f"{det['iterations']}, cg_iterations={det['cg_iterations']}")
+        check(det["converged"] and d <= 1e-3, "sharded estimate_h2_reml")
+
+        # -- 10e. the scans ----------------------------------------------------
+        loco_r, secs_of["gwas_mixed_loco tight"] = sync_time(
+            lambda: gwas_mixed_loco(gm, y, chrom, covariates=cov,
+                                    n_gamma_snps=32, tol=STREAM_MIXED_TOL[0],
+                                    maxiter=GWAS_MAXITER))
+        resident["gwas_mixed_loco"] = loco_r
+        for name, fn, ref_name, stats in (
+                ("gwas_linear", lambda: gwas_linear(sg, y, covariates=cov),
+                 "gwas_linear", ("beta", "se", "t")),
+                ("gwas_logistic", lambda: gwas_logistic(sg, yb,
+                                                        covariates=cov),
+                 "gwas_logistic", ("beta", "se", "t")),
+                ("gwas_mixed", lambda: gwas_mixed(
+                    sg, y, covariates=cov, n_gamma_snps=64,
+                    tol=STREAM_MIXED_TOL[0], maxiter=GWAS_MAXITER),
+                 "gwas_mixed tight", ("beta", "chi2")),
+                ("gwas_mixed_loco", lambda: gwas_mixed_loco(
+                    sg, y, chrom, covariates=cov, n_gamma_snps=32,
+                    tol=STREAM_MIXED_TOL[0], maxiter=GWAS_MAXITER),
+                 "gwas_mixed_loco tight", ("beta", "chi2"))):
+            out, _ = call(name, fn, secs_of[ref_name])
+            want = resident[name]
+            rels = {k: rel(getattr(out, k), getattr(want, k)) for k in stats}
+            log(f"check sharded {name} vs resident: "
+                + " ".join(f"{k} rel={v:.3g}" for k, v in rels.items())
+                + (f"; gamma {out.gamma:.6g} (resident {want.gamma:.6g}) "
+                   f"cg_iterations {out.cg_iterations} (resident "
+                   f"{want.cg_iterations})" if hasattr(out, "gamma") else ""))
+            check(all(v <= 1e-4 for v in rels.values())
+                  and all(np.isfinite(getattr(out, k)).all() for k in stats),
+                  f"sharded {name}")
+
+        # -- 10f. the 2D layer -------------------------------------------------
+        s2, _ = call("shard_genotypes_2d_from_bed", lambda: (
+            parallel.shard_genotypes_2d_from_bed(bed_path, mesh2)))
+        for trans, rows in (("n", N_SNPS), ("t", N_INDIV)):
+            b = torch.as_tensor(prng.standard_normal((rows, 32)),
+                                dtype=torch.float32, device=dev)
+            want, rsecs = sync_time(lambda: dgemm(gm, b, trans=trans))
+            pad = (parallel.pad_snp_vec if trans == "n"
+                   else parallel.pad_indiv_vec)(s2, b)
+            out, _ = call(f"sharded_dgemm_2d {trans} ncol=32",
+                          lambda: parallel.sharded_dgemm_2d(s2, pad, trans),
+                          rsecs)
+            d = rel(sharded2d.gather_rows(out)[: want.shape[0]], want)
+            log(f"check sharded_dgemm_2d {trans} vs resident: rel={d:.3g}")
+            check(d <= KERNEL_RTOL, f"sharded_dgemm_2d {trans}")
+        raw2, _ = call("sharded raw crossproduct 2d",
+                       lambda: sharded2d.sharded_crossprod_2d(s2))
+        check(torch.equal(sharded2d.gather_rows(raw2)[:N_INDIV, :N_INDIV],
+                          raw_r[:N_INDIV, :N_INDIV]), "2D raw crossproduct")
+        del raw2, raw_r
+        r2d, _ = call("sharded_cg_solve_2d precondition=True",
+                      lambda: parallel.sharded_cg_solve_2d(
+                          s2, rhs, lam=lam, tol=1e-3, precondition=True))
+        d = rel(sharded2d.gather_rows(r2d.x)[:N_INDIV], r.x)
+        log(f"check sharded_cg_solve_2d vs the 1D solve: x rel={d:.3g}, "
+            f"iterations {r2d.iterations} (1D {r.iterations})")
+        check(d <= 1e-4 and abs(r2d.iterations - r.iterations) <= 1,
+              "sharded_cg_solve_2d")
+        ys4 = resident["ys4"]
+        (_, _, dm), _ = call("estimate_multi_reml t=4 (2D)", lambda: (
+            gblup.estimate_multi_reml(s2, ys4)),
+            secs_of["estimate_multi_reml t=4"])
+        d = float(np.abs(dm["h2"]
+                         - resident["estimate_multi_reml t=4"]).max())
+        log(f"  sharded estimate_multi_reml t=4 (2D): h2 "
+            f"{np.round(dm['h2'], 4)} (|diff| {d:.3g} from the resident "
+            f"one), AI steps {dm['iterations']}, cg_iterations "
+            f"{dm['cg_iterations']}")
+        check(dm["converged"] and d <= 1e-4, "sharded estimate_multi_reml")
+        del s2
+
+        # -- 10g. the checkpoint ---------------------------------------------
+        ckpt = os.path.join(os.path.dirname(bed_path), "sharded.npz")
+        b = torch.as_tensor(prng.standard_normal((N_SNPS, 32)),
+                            dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        parallel.save_sharded(ckpt, sg)
+        t_save = time.perf_counter() - t0
+        sg_re, t_load = sync_time(lambda: parallel.load_sharded(ckpt, mesh))
+        same = torch.equal(parallel.sharded_dgemm(sg_re, b),
+                           parallel.sharded_dgemm(sg, b))
+        log(f"check save_sharded / load_sharded: save {t_save:.3f} s, load "
+            f"{t_load:.3f} s, {os.path.getsize(ckpt) / 1e6:.1f} MB; "
+            f"products equal: {same}")
+        check(same, "the reloaded sharded panel")
+        os.remove(ckpt)
+        del sg_re, sg, gm
+        torch.cuda.empty_cache()
+
+        # -- 10h. the "ssgblup" cell sharded 4 ways ----------------------------
+        n_anim = len(cell["sire"])
+        sgs, _ = call("ssgblup cell shard_genotypes_from_bed", lambda: (
+            parallel.shard_genotypes_from_bed(cell["bed"], mesh)))
+        hinv, _ = call("SingleStepHInv set-up", lambda: ssg.SingleStepHInv(
+            cell["sire"], cell["dam"], sgs, cell["geno_ids"], blend=0.05,
+            f=np.zeros(n_anim)))
+        res, _ = call("ssgblup", lambda: ssg.ssgblup(
+            cell["y"], hinv, obs_ids=cell["obs_ids"], h2=0.4, tol=1e-5,
+            maxiter=SS_MAXITER), cell["secs"])
+        d = rel(res.u, cell["u"])
+        log(f"check sharded ssgblup vs resident: u rel={d:.3g}, outer CG "
+            f"iterations {res.iterations} (resident {cell['iterations']})")
+        check(hinv._kind == "sharded" and res.u.shape == (n_anim,)
+              and d <= 1e-3 and abs(res.iterations - cell["iterations"]) <= 1,
+              "sharded ssgblup")
+        del hinv, sgs
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived phase 10")
+    log(f"phase 10 (sharded) total: {time.perf_counter() - t_phase:.3f} s")
+
+
 def small_single_step(dev, small, seed):
     """Phase 8's single-step part: the sparse solver (n = 5,000, bs 300:
     lower and upper, 'n' and 't', float32 and float64, ``solve_lltx`` with a
@@ -1699,7 +2003,7 @@ def main() -> int:
           "a kernel of the GBLUP path was never launched")
     # what phase 9 holds its streamed calls to: resident results and their
     # seconds (secs_of: each counted call's)
-    resident = {"gblup": res.g_hat}
+    resident = {"gblup": res.g_hat, "gblup iterations": res.cg_iterations}
     secs_of = {"gblup": secs}
     per_fn = {}   # function -> its launches on a main path
 
@@ -2364,6 +2668,10 @@ def main() -> int:
     # -- 9. the out-of-core streamed panel, counted --------------------------
     streamed_phase(dev, sync_time, take_counts, bed_path, y, yb, cov, qtl,
                    resident, secs_of, cell)
+
+    # -- 10. the parallel layer, 4 shards on the card, counted ---------------
+    sharded_phase(dev, sync_time, take_counts, bed_path, y, yb, cov, chrom,
+                  resident, secs_of, cell)
     fileset.cleanup()
     missing = [k for k in SOURCES if launches[k] == 0]
     check(not missing, f"never launched on a main path: {missing}")

@@ -11,7 +11,11 @@ bivariate and multi-trait REML), cross-validation and multi-trait GBLUP;
 the sparse triangular solver, the pedigree algebra (inbreeding, A and its
 sparse inverse) and single-step GBLUP with its REML; panels held in host
 memory, whole (``device_put=False``) or as the out-of-core
-``StreamedGeno``, whose SNP chunks stream through the same kernels.
+``StreamedGeno``, whose SNP chunks stream through the same kernels; and
+panels sharded over a mesh of devices and processes
+(``miraculix_tpu_torch.parallel``: SNP-sharded and 2D-sharded, over
+``torch.distributed``), which GBLUP, REML, the scans and single-step take
+as they take a panel.
 The packed products run in hand-written CUDA kernels
 (``csrc/``, built at first use by ``_kernels``); on CPU tensors every op
 takes the plain torch version of its kernel.  Panels go to the CUDA card

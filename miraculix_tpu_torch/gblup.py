@@ -23,9 +23,12 @@ glue around them (projections, traces, the average-information matrix and
 its updates) stays numpy float64 on the host.
 
 Every function takes a :class:`GenoMatrix` (a host-resident one gets one
-device copy per call) or an out-of-core :class:`StreamedGeno`, whose G
-products stream its chunks and whose solves are its host float64 PCG, as
-in the reference; the sharded containers are not ported yet (ROADMAP A13).
+device copy per call), an out-of-core :class:`StreamedGeno`, whose G
+products stream its chunks and whose solves are its host float64 PCG, or a
+sharded :class:`parallel.ShardedGeno` / :class:`parallel.ShardedGeno2D`,
+whose G products and CGs run across the mesh (one or two psums an
+iteration), as in the reference.  GBLUP on a streamed or sharded panel
+takes ``solver="cg"`` only.
 """
 from __future__ import annotations
 
@@ -38,31 +41,44 @@ import torch
 from .geno import GenoMatrix, _device, from_bed, on_compute
 from .ops.dgemm import dgemm
 from .ops.grm import grm
+from .parallel import (ShardedGeno, ShardedGeno2D, host_global,
+                       pad_indiv_vec, sharded_cg_solve, sharded_cg_solve_2d,
+                       sharded_dgemm, sharded_dgemm_2d, sharded_grm_diag,
+                       sharded_grm_diag_2d, sharded_grm_matvec)
+from .parallel.sharded2d import grm_matvec_2d
 from .solve.cg import (cg, grm_cg_solve, grm_cg_solve_refined, grm_diag,
                        grm_matvec, grm_matvec_f64, jacobi_minv)
 from .solve.dense import dense_solve
 from .streamed import StreamedGeno
 
 
+CONTAINERS = (GenoMatrix, StreamedGeno, ShardedGeno, ShardedGeno2D)
+
+
 def _check_container(g):
     """``g`` ready to compute on: a GenoMatrix with its words on its
-    compute device (:func:`geno.on_compute`), or a StreamedGeno as it is.
-    Other containers raise."""
+    compute device (:func:`geno.on_compute`); a StreamedGeno, ShardedGeno
+    or ShardedGeno2D as it is.  Anything else raises TypeError."""
     if isinstance(g, GenoMatrix):
         return on_compute(g)
-    if isinstance(g, StreamedGeno):
+    if isinstance(g, CONTAINERS):
         return g
-    raise NotImplementedError(
-        f"{type(g).__name__}: the sharded containers are not ported yet "
-        "(ROADMAP A13)")
+    raise TypeError(
+        f"{type(g).__name__} is not a genotype container: pass a "
+        + ", ".join(c.__name__ for c in CONTAINERS))
 
 
 def _grm_matvec_of(g):
-    """G v operator (torch f32 in and out, on the panel's compute device):
-    two packed products, or one streamed pass over the chunks."""
+    """G v operator (torch f32 in and out, on the panel's compute device,
+    replicated on every process of a mesh): two packed products, one
+    streamed pass over the chunks, or the sharded operator."""
     g = _check_container(g)
     if isinstance(g, StreamedGeno):
         return g.grm_matvec
+    if isinstance(g, ShardedGeno):
+        return lambda v: sharded_grm_matvec(g, v)
+    if isinstance(g, ShardedGeno2D):
+        return lambda v: grm_matvec_2d(g, v)
     return lambda v: grm_matvec(g, v)
 
 
@@ -71,8 +87,13 @@ def _grm_diag_of(g) -> np.ndarray:
     g = _check_container(g)
     if isinstance(g, StreamedGeno):
         return g.grm_diag(center=True)
-    return grm_diag(g, center=True, scale=False).cpu().numpy().astype(
-        np.float64)
+    if isinstance(g, ShardedGeno):
+        d = host_global(sharded_grm_diag(g))
+    elif isinstance(g, ShardedGeno2D):
+        d = host_global(sharded_grm_diag_2d(g))[: g.indiv]
+    else:
+        d = grm_diag(g, center=True, scale=False).cpu().numpy()
+    return d.astype(np.float64)
 
 
 def _scaled_matvec_of(g):
@@ -91,7 +112,7 @@ def _scaled_matvec_of(g):
         np.float64) / sigma2
 
 
-def randomized_grm_pca(g: GenoMatrix, k: int = 10, oversample: int = 8,
+def randomized_grm_pca(g, k: int = 10, oversample: int = 8,
                        power_iters: int = 2,
                        seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     """Top-k eigenpairs of the (unscaled, centered) GRM by the Halko
@@ -125,7 +146,7 @@ class GBLUPResult:
     converged: bool = True          # every CG (or refined) solve met tol
 
 
-def gblup(g: GenoMatrix, y: np.ndarray, h2: float = 0.5, n_pcs: int = 10,
+def gblup(g, y: np.ndarray, h2: float = 0.5, n_pcs: int = 10,
           covariates: Optional[np.ndarray] = None, solver: str = "cg",
           tol: float = 1e-4, maxiter: int = 2000,
           seed: int = 0, verbose: bool = False) -> GBLUPResult:
@@ -138,12 +159,14 @@ def gblup(g: GenoMatrix, y: np.ndarray, h2: float = 0.5, n_pcs: int = 10,
     matvec), or "dense" (the scaled GRM formed by :func:`grm` and solved by
     Cholesky in f32).  A :class:`StreamedGeno` takes "cg" only, solved
     by its host float64 PCG (``tol`` relative there, as in the reference;
-    ``verbose`` prints its iterations, and nothing on a ``GenoMatrix``)."""
+    ``verbose`` prints its iterations, and nothing on a ``GenoMatrix``); a
+    ShardedGeno / ShardedGeno2D takes "cg" only, each solve one CG across
+    the mesh."""
     if solver not in ("cg", "refined", "dense"):
         raise ValueError(f"solver must be cg/refined/dense, got {solver!r}")
     g = _check_container(g)
     streamed = isinstance(g, StreamedGeno)
-    if streamed and solver != "cg":
+    if not isinstance(g, GenoMatrix) and solver != "cg":
         raise ValueError("sharded/streamed GBLUP supports solver='cg' only")
     n = g.indiv
     lam = (1.0 - h2) / h2
@@ -182,10 +205,18 @@ def gblup(g: GenoMatrix, y: np.ndarray, h2: float = 0.5, n_pcs: int = 10,
                 inner_maxiter=maxiter)
             converged &= bool(rel.max() <= tol)
             return xs * sigma2, inner
-        res = grm_cg_solve(g, rhs, lam=lam * sigma2, scale=False, tol=tol,
-                           maxiter=maxiter)
+        if isinstance(g, ShardedGeno):
+            res = sharded_cg_solve(g, rhs, lam=lam * sigma2, tol=tol,
+                                   maxiter=maxiter)
+        elif isinstance(g, ShardedGeno2D):
+            res = sharded_cg_solve_2d(g, rhs, lam=lam * sigma2, tol=tol,
+                                      maxiter=maxiter)
+        else:
+            res = grm_cg_solve(g, rhs, lam=lam * sigma2, scale=False,
+                               tol=tol, maxiter=maxiter)
         converged &= bool(torch.all(res.residual_norm <= tol))
-        return res.x.cpu().numpy().astype(np.float64) * sigma2, res.iterations
+        return (host_global(res.x)[:n].astype(np.float64) * sigma2,
+                res.iterations)
 
     def _dense(rhs: np.ndarray) -> np.ndarray:
         return dense_solve(gmat, torch.as_tensor(
@@ -221,15 +252,21 @@ def gblup(g: GenoMatrix, y: np.ndarray, h2: float = 0.5, n_pcs: int = 10,
                        pcs=pcs, cg_iterations=iters, u=u, converged=converged)
 
 
-def snp_effects(g: GenoMatrix, res: GBLUPResult) -> np.ndarray:
+def snp_effects(g, res: GBLUPResult) -> np.ndarray:
     """Per-SNP marker effects alpha = Z_c^T u / sigma2 (g_hat = Z_c alpha):
-    one packed 't' pass, streamed on a :class:`StreamedGeno`."""
+    one packed 't' pass, streamed on a :class:`StreamedGeno`, row-sharded
+    on a sharded panel."""
     g = _check_container(g)
     if res.u is None:
         raise ValueError("GBLUPResult has no random-effect solutions")
     u = res.u[:, None].astype(np.float32)
     if isinstance(g, StreamedGeno):
         a = g.dgemm(u, trans="t", center=True).astype(np.float64)
+    elif isinstance(g, ShardedGeno):
+        a = host_global(sharded_dgemm(g, u, trans="t")).astype(np.float64)
+    elif isinstance(g, ShardedGeno2D):
+        a = host_global(sharded_dgemm_2d(g, pad_indiv_vec(g, u), trans="t")
+                        )[: g.snps].astype(np.float64)
     else:
         a = dgemm(g, u, trans="t", center=True).cpu().numpy().astype(
             np.float64)
@@ -366,7 +403,7 @@ def run_gblup(bed_path: str, h2: float = 0.5, pcs: int = 10,
     return 0
 
 
-def cross_validate(g: GenoMatrix, y: np.ndarray, h2: float = 0.5, k: int = 5,
+def cross_validate(g, y: np.ndarray, h2: float = 0.5, k: int = 5,
                    tol: float = 1e-5, maxiter: int = 2000, seed: int = 0):
     """K-fold cross-validated prediction accuracy, one CG per fold on a
     masked operator that never slices G:
@@ -406,10 +443,11 @@ def cross_validate(g: GenoMatrix, y: np.ndarray, h2: float = 0.5, k: int = 5,
     return np.asarray(cors), float(np.mean(cors))
 
 
-def _ridge_solver(g: GenoMatrix, tol: float, maxiter: int):
+def _ridge_solver(g, tol: float, maxiter: int):
     """``solve(rhs, lam) -> (x float64, iterations)``: (Z_c Z_c^T + lam I)
     x = rhs for a numpy block by Jacobi-preconditioned CG on the device
-    (a streamed panel's host PCG), ``lam`` taken at run time."""
+    (a streamed panel's host PCG, a sharded panel's CG across the mesh),
+    ``lam`` taken at run time."""
     g = _check_container(g)
 
     if isinstance(g, StreamedGeno):
@@ -419,16 +457,24 @@ def _ridge_solver(g: GenoMatrix, tol: float, maxiter: int):
                                      precondition=True)
             return np.asarray(x, np.float64), int(iters)
         return solve
+    cg_solve = (sharded_cg_solve if isinstance(g, ShardedGeno)
+                else sharded_cg_solve_2d if isinstance(g, ShardedGeno2D)
+                else None)
 
     def solve(rhs, lam):
-        r = grm_cg_solve(g, rhs, lam=lam, scale=False, tol=tol,
-                         maxiter=maxiter, precondition=True)
-        return r.x.cpu().numpy().astype(np.float64), int(r.iterations)
+        if cg_solve is None:
+            r = grm_cg_solve(g, rhs, lam=lam, scale=False, tol=tol,
+                             maxiter=maxiter, precondition=True)
+        else:
+            r = cg_solve(g, rhs, lam=float(lam), tol=tol, maxiter=maxiter,
+                         precondition=True)
+        x = host_global(r.x)[: g.indiv]
+        return x.astype(np.float64), int(r.iterations)
 
     return solve
 
 
-def estimate_h2_reml(g: GenoMatrix, y: np.ndarray,
+def estimate_h2_reml(g, y: np.ndarray,
                      covariates: Optional[np.ndarray] = None,
                      n_probes: int = 16, probes: Optional[np.ndarray] = None,
                      max_iter: int = 30, tol: float = 5e-4,
@@ -571,7 +617,7 @@ def estimate_h2_reml(g: GenoMatrix, y: np.ndarray,
     }
 
 
-def estimate_h2_he(g: GenoMatrix, y: np.ndarray, n_probes: int = 16,
+def estimate_h2_he(g, y: np.ndarray, n_probes: int = 16,
                    seed: int = 0):
     """Haseman-Elston regression estimate of SNP heritability, G never
     formed:
@@ -606,7 +652,7 @@ def estimate_h2_he(g: GenoMatrix, y: np.ndarray, n_probes: int = 16,
     }
 
 
-def _multi_v_solver(g: GenoMatrix, t: int, dG: np.ndarray, cg_tol: float,
+def _multi_v_solver(g, t: int, dG: np.ndarray, cg_tol: float,
                     cg_maxiter: int):
     """Device block CG for V = (Sg x G_s) + (Se x I) over trait pages
     [n, t, m], the inner solve of :func:`estimate_multi_reml`.  One
@@ -617,7 +663,10 @@ def _multi_v_solver(g: GenoMatrix, t: int, dG: np.ndarray, cg_tol: float,
 
     Returns ``solve(b3 [n, t, m] float64, sg, se) -> (x3 float64,
     iterations)``.  A :class:`StreamedGeno` takes
-    :func:`_multi_v_solver_streamed`."""
+    :func:`_multi_v_solver_streamed`; a ShardedGeno or ShardedGeno2D (the
+    reference's kinds "sharded" and "sharded2d") runs the same CG on its
+    sharded G operator (:func:`_grm_matvec_of`), its vectors replicated
+    on every process."""
     g = _check_container(g)
     if isinstance(g, StreamedGeno):
         return _multi_v_solver_streamed(g, t, dG, cg_tol, cg_maxiter)
@@ -673,7 +722,7 @@ def _multi_v_solver_streamed(g: StreamedGeno, t: int, dG: np.ndarray,
     return _multi_v_cg(g.grm_matvec, g, t, dG, cg_tol, cg_maxiter)
 
 
-def estimate_multi_reml(g: GenoMatrix, ys: np.ndarray, covariates=None,
+def estimate_multi_reml(g, ys: np.ndarray, covariates=None,
                         n_probes: int = 8, probes=None, max_iter: int = 40,
                         tol: float = 5e-4, cg_tol: float = 1e-5,
                         cg_maxiter: int = 2000, seed: int = 0,
@@ -958,7 +1007,7 @@ def _project_psd(m, floor=0.0, cap=None):
     return (v * w) @ v.T
 
 
-def estimate_bivar_reml(g: GenoMatrix, y1: np.ndarray, y2: np.ndarray,
+def estimate_bivar_reml(g, y1: np.ndarray, y2: np.ndarray,
                         covariates=None, n_probes: int = 8, probes=None,
                         max_iter: int = 40, tol: float = 5e-4,
                         cg_tol: float = 1e-5, cg_maxiter: int = 2000,
@@ -996,7 +1045,7 @@ class MTGBLUPResult:
     cg_iterations: int = 0
 
 
-def multi_trait_gblup(g: GenoMatrix, y: np.ndarray, su: np.ndarray,
+def multi_trait_gblup(g, y: np.ndarray, su: np.ndarray,
                       se: np.ndarray, covariates: Optional[np.ndarray] = None,
                       tol: float = 1e-5, maxiter: int = 2000) -> MTGBLUPResult:
     """Multi-trait GBLUP with known covariances, t traits on the same

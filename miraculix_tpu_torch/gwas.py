@@ -16,7 +16,12 @@ numpy float64, as in the reference.
 
 On an out-of-core :class:`StreamedGeno` every packed pass streams the
 chunks, and the mixed scan's block CG is the container's host PCG, as in
-the reference; the LOCO scan needs a GenoMatrix.
+the reference; the LOCO scan needs a GenoMatrix.  On a SNP-sharded
+:class:`parallel.ShardedGeno` every 't' pass is row-parallel over the
+shards, the sampled columns one 'n' pass by a one-hot RHS, the mixed
+scan's CG the sharded Jacobi CG, and LOCO masks the off-chromosome SNPs
+between the passes of one sharded operator (no repacking), as in the
+reference; a 2D-sharded panel raises TypeError, as there.
 """
 from __future__ import annotations
 
@@ -29,6 +34,10 @@ from .gblup import _check_container
 from .geno import GenoMatrix, subset_snps
 from .ops.common import packed_indicator2, packed_row_sq_stats
 from .ops.dgemm import dgemm, packed_matmul_tall
+from .parallel import (ShardedGeno, ShardedGeno2D, host_global,
+                       sharded_cg_solve, sharded_dgemm,
+                       sharded_indicator2_dgemm_t, sharded_loco_cg_solve,
+                       sharded_snp_sq_stats)
 from .solve.cg import cg, grm_cg_solve, grm_diag, grm_matvec, jacobi_minv
 from .streamed import StreamedGeno
 
@@ -70,13 +79,24 @@ def _design(n: int, covariates) -> np.ndarray:
     return np.concatenate(cols, axis=1)
 
 
-def _snp_residual_denominators(g: GenoMatrix, x: np.ndarray,
+def _scan_container(g):
+    """The container of a scan: the reference's scans take a GenoMatrix,
+    a StreamedGeno or a ShardedGeno; a ShardedGeno2D raises TypeError."""
+    if isinstance(g, ShardedGeno2D):
+        raise TypeError("the GWAS scans take a GenoMatrix, StreamedGeno or "
+                        "ShardedGeno, not a ShardedGeno2D")
+    return _check_container(g)
+
+
+def _snp_residual_denominators(g, x: np.ndarray,
                                xtx_inv: np.ndarray) -> np.ndarray:
     """d_s = z_s^T M z_s for every SNP (clamped at 0): one packed 't' pass
     (Z^T X) plus the exact sum z^2 per SNP (a pass of its own, chunk by
-    chunk, on a streamed panel)."""
+    chunk, on a streamed panel; row-parallel on a sharded one)."""
     a = _t_pass(g, x)                                           # [snps, p]
-    if isinstance(g, StreamedGeno):
+    if isinstance(g, ShardedGeno):
+        zsq = host_global(sharded_snp_sq_stats(g)).astype(np.float64)
+    elif isinstance(g, StreamedGeno):
         zsq = np.concatenate([_host(packed_row_sq_stats(c.zq_t))[: c.snps]
                               for c in g.each_chunk(0)])
     else:
@@ -84,10 +104,13 @@ def _snp_residual_denominators(g: GenoMatrix, x: np.ndarray,
     return np.maximum(zsq - np.einsum("sp,pq,sq->s", a, xtx_inv, a), 0.0)
 
 
-def _t_pass(g: GenoMatrix, v: np.ndarray) -> np.ndarray:
+def _t_pass(g, v: np.ndarray) -> np.ndarray:
     """Z^T v (uncentered) as one packed 't' pass, numpy f64 [snps, k]."""
     if v.ndim == 1:
         v = v[:, None]
+    if isinstance(g, ShardedGeno):
+        return host_global(sharded_dgemm(g, v.astype(np.float32), trans="t",
+                                         center=False)).astype(np.float64)
     if isinstance(g, StreamedGeno):
         return g.dgemm(v.astype(np.float32), trans="t",
                        center=False).astype(np.float64)
@@ -106,13 +129,13 @@ def _pvalues(dist: str, stat: np.ndarray, df: int = 1) -> np.ndarray:
     return stats.chi2.sf(stat, 1)
 
 
-def gwas_linear(g: GenoMatrix, y: np.ndarray,
+def gwas_linear(g, y: np.ndarray,
                 covariates: Optional[np.ndarray] = None) -> GWASResult:
     """Per-SNP linear association scan (see the module docstring).
     ``y``: [indiv] phenotype; ``covariates``: optional [indiv, c] (the
     intercept is always added).  t statistics use the per-SNP residual
     variance (y~^T y~ - beta_s^2 d_s) / (n - p - 1)."""
-    g = _check_container(g)
+    g = _scan_container(g)
     n = g.indiv
     y = np.asarray(y, np.float64).reshape(n)
     x = _design(n, covariates)
@@ -136,14 +159,17 @@ def gwas_linear(g: GenoMatrix, y: np.ndarray,
     return GWASResult(beta=beta, se=se, t=t, p=_pvalues("t", t, df), df=df)
 
 
-def _sampled_columns(g: GenoMatrix, snps: np.ndarray) -> np.ndarray:
+def _sampled_columns(g, snps: np.ndarray) -> np.ndarray:
     """The genotype columns of ``snps`` [n, k]: the subset panel times the
-    identity, one packed 'n' pass; a streamed panel, which has no subset,
-    streams a one-hot [snps, k] RHS instead."""
+    identity, one packed 'n' pass; a streamed or sharded panel, which has
+    no subset, takes a one-hot [snps, k] RHS instead (streamed by chunks,
+    or sharded by SNP rows)."""
     k = len(snps)
-    if isinstance(g, StreamedGeno):
+    if isinstance(g, (StreamedGeno, ShardedGeno)):
         onehot = np.zeros((g.snps, k), np.float32)
         onehot[snps, np.arange(k)] = 1.0
+        if isinstance(g, ShardedGeno):
+            return _host(sharded_dgemm(g, onehot, trans="n", center=False))
         return g.dgemm(onehot, trans="n", center=False).astype(np.float64)
     return _host(dgemm(subset_snps(g, snps), np.eye(k, dtype=np.float32),
                        trans="n", center=False))
@@ -156,7 +182,7 @@ def _gamma(mzcols: np.ndarray, vcols: np.ndarray, ds: np.ndarray) -> float:
     return float(np.mean(dv[ok] / ds[ok])) if ok.any() else 1.0
 
 
-def gwas_mixed(g: GenoMatrix, y: np.ndarray,
+def gwas_mixed(g, y: np.ndarray,
                covariates: Optional[np.ndarray] = None, h2: float = 0.5,
                n_gamma_snps: int = 64, tol: float = 1e-6,
                maxiter: int = 2000, seed: int = 0) -> MixedGWASResult:
@@ -168,8 +194,9 @@ def gwas_mixed(g: GenoMatrix, y: np.ndarray,
 
     ``tol`` bounds each CG column's residual norm (absolute; relative on
     a :class:`StreamedGeno`, whose Jacobi-preconditioned host PCG takes
-    the block CG's place, as in the reference)."""
-    g = _check_container(g)
+    the block CG's place, as in the reference; a ShardedGeno's CG is
+    Jacobi-preconditioned too, as there)."""
+    g = _scan_container(g)
     n = g.indiv
     lam = (1.0 - h2) / h2
     y = np.asarray(y, np.float64).reshape(n)
@@ -190,6 +217,12 @@ def gwas_mixed(g: GenoMatrix, y: np.ndarray,
         solved, iters, rel = g.cg_solve(rhs, lam=lam, scale=True, tol=tol,
                                         maxiter=maxiter, precondition=True)
         resid = float((rel * np.linalg.norm(rhs, axis=0)).max())
+    elif isinstance(g, ShardedGeno):
+        res = sharded_cg_solve(g, rhs.astype(np.float32), lam=lam,
+                               scale=True, tol=tol, maxiter=maxiter,
+                               precondition=True)
+        solved, iters = _host(res.x), int(res.iterations)
+        resid = float(res.residual_norm.max())
     else:
         res = grm_cg_solve(g, rhs.astype(np.float32), lam=lam, scale=True,
                            tol=tol, maxiter=maxiter)
@@ -208,7 +241,7 @@ def gwas_mixed(g: GenoMatrix, y: np.ndarray,
         cg_iterations=iters, residual_norm=np.array([resid]))
 
 
-def gwas_logistic(g: GenoMatrix, y: np.ndarray,
+def gwas_logistic(g, y: np.ndarray,
                   covariates: Optional[np.ndarray] = None,
                   max_irls: int = 50, irls_tol: float = 1e-10) -> GWASResult:
     """Case-control per-SNP logistic score test, the null model fit once
@@ -221,8 +254,9 @@ def gwas_logistic(g: GenoMatrix, y: np.ndarray,
     (``packed_indicator2``), so every term is a packed product.  ``beta`` is
     the one-step U/V, se = 1/sqrt(V), and t the signed score statistic.
     On a streamed panel each chunk's indicator packing is made and
-    multiplied on the compute device."""
-    g = _check_container(g)
+    multiplied on the compute device; on a sharded one the indicator
+    product is row-parallel over the shards."""
+    g = _scan_container(g)
     n = g.indiv
     y = np.asarray(y, np.float64).reshape(n)
     if not np.isin(y, (0.0, 1.0)).all():
@@ -247,7 +281,9 @@ def gwas_logistic(g: GenoMatrix, y: np.ndarray,
     zt = _t_pass(g, np.concatenate([(y - mu)[:, None], w[:, None], wx],
                                    axis=1))
     wcol = torch.as_tensor(w[:, None], dtype=torch.float32, device=g.device)
-    if isinstance(g, StreamedGeno):
+    if isinstance(g, ShardedGeno):
+        s2 = host_global(sharded_indicator2_dgemm_t(g, wcol))[:, 0]
+    elif isinstance(g, StreamedGeno):
         s2 = np.concatenate([
             _host(packed_matmul_tall(packed_indicator2(c.zq_n),
                                      wcol))[: c.snps, 0]
@@ -279,7 +315,7 @@ def _loco_cg(g: GenoMatrix, g_c: GenoMatrix, rhs: torch.Tensor,
     return cg(op, rhs, tol=tol, maxiter=maxiter, minv=minv)
 
 
-def gwas_mixed_loco(g: GenoMatrix, y: np.ndarray, chrom: np.ndarray,
+def gwas_mixed_loco(g, y: np.ndarray, chrom: np.ndarray,
                     covariates: Optional[np.ndarray] = None, h2: float = 0.5,
                     n_gamma_snps: int = 32, tol: float = 1e-6,
                     maxiter: int = 2000, seed: int = 0) -> MixedGWASResult:
@@ -288,7 +324,11 @@ def gwas_mixed_loco(g: GenoMatrix, y: np.ndarray, chrom: np.ndarray,
     V_(-c) = G_(-c)/sigma2_(-c) + lam I, whose matvec is the full panel's
     minus the chromosome subset's (built with the full panel's frequencies,
     so the difference is exact); gamma is re-estimated per chromosome from
-    SNPs sampled within it, and d_s is computed once.  A
+    SNPs sampled within it, and d_s is computed once.  On a ShardedGeno the
+    subset is not repacked (it would be ragged across shards): the LOCO
+    operator multiplies the 't' output by a 0/1 off-chromosome mask between
+    the packed passes (:func:`parallel.sharded_loco_cg_solve`), so every
+    chromosome runs the same shards, as in the reference.  A
     :class:`StreamedGeno` raises TypeError: the LOCO operator subsets the
     panel per chromosome."""
     if isinstance(g, StreamedGeno):
@@ -297,7 +337,7 @@ def gwas_mixed_loco(g: GenoMatrix, y: np.ndarray, chrom: np.ndarray,
             "subsets the packed panel per chromosome); for out-of-core "
             "panels run gwas_mixed per chromosome with a pre-split panel, "
             "or materialize the panel")
-    g = _check_container(g)
+    g = _scan_container(g)
     n = g.indiv
     lam = (1.0 - h2) / h2
     y = np.asarray(y, np.float64).reshape(n)
@@ -311,9 +351,32 @@ def gwas_mixed_loco(g: GenoMatrix, y: np.ndarray, chrom: np.ndarray,
     def proj(v):
         return v - x @ (xtx_inv @ (x.T @ v))
 
+    # fold(idx) -> (solve(rhs, s2_loco), u_of(ystar) = Z_c^T ystar) for the
+    # chromosome whose SNPs are idx
+    if isinstance(g, ShardedGeno):
+        freq = g.global_freq()[: g.snps].astype(np.float64)
+
+        def fold(idx):
+            w = np.ones(g.padded_snps, np.float32)
+            w[g.snps:] = 0.0                    # padding (zero rows already)
+            w[idx] = 0.0                        # leave chromosome c out
+            return (lambda rhs, s2_loco: sharded_loco_cg_solve(
+                        g, w, rhs.astype(np.float32), s2_loco, lam, tol=tol,
+                        maxiter=maxiter),
+                    lambda ystar: _t_pass(g, ystar)[idx, 0])
+    else:
+        freq = _host(g.freq)
+
+        def fold(idx):
+            g_c = subset_snps(g, idx)
+            return (lambda rhs, s2_loco: _loco_cg(
+                        g, g_c, torch.as_tensor(rhs, dtype=torch.float32,
+                                                device=g.device),
+                        s2_loco, lam, tol=tol, maxiter=maxiter),
+                    lambda ystar: _t_pass(g_c, ystar)[:, 0])
+
     y_res = proj(y)
     d = _snp_residual_denominators(g, x, xtx_inv)
-    freq = _host(g.freq)
     sigma2 = float(g.sigma2)
 
     rng = np.random.default_rng(seed)
@@ -323,7 +386,7 @@ def gwas_mixed_loco(g: GenoMatrix, y: np.ndarray, chrom: np.ndarray,
     resid = []
     for c in np.unique(chrom):
         idx = np.flatnonzero(chrom == c)
-        g_c = subset_snps(g, idx)
+        solve, u_of = fold(idx)
         s2_loco = sigma2 - float(2.0 * np.sum(freq[idx] * (1.0 - freq[idx])))
         if s2_loco <= 0:
             raise ValueError(f"chromosome {c!r} carries the whole panel")
@@ -332,17 +395,13 @@ def gwas_mixed_loco(g: GenoMatrix, y: np.ndarray, chrom: np.ndarray,
         mzcols = proj(_sampled_columns(g, idx[sample_local]))
 
         rhs = np.concatenate([y_res[:, None], mzcols], axis=1)
-        res = _loco_cg(g, g_c, torch.as_tensor(rhs, dtype=torch.float32,
-                                               device=g.device),
-                       s2_loco, lam, tol=tol, maxiter=maxiter)
+        res = solve(rhs, s2_loco)
         solved = _host(res.x)
         iters_total += int(res.iterations)
         resid.append(float(res.residual_norm.max()))
         ystar = proj(solved[:, 0])
         gamma_by[c] = _gamma(mzcols, solved[:, 1:], d[idx][sample_local])
-        uc = _host(dgemm(g_c, ystar[:, None].astype(np.float32), trans="t",
-                         center=False))[:, 0]
-        u[idx] = uc / gamma_by[c]   # per-chromosome gamma folded in here
+        u[idx] = u_of(ystar) / gamma_by[c]   # per-chromosome gamma
 
     with np.errstate(divide="ignore", invalid="ignore"):
         gam = np.array([gamma_by[c] for c in chrom])

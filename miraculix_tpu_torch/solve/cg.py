@@ -31,17 +31,24 @@ class CGResult(NamedTuple):
 
 def cg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
        x0: Optional[torch.Tensor] = None, tol: float = 1e-2,
-       maxiter: int = 1000, minv: Optional[torch.Tensor] = None) -> CGResult:
+       maxiter: int = 1000, minv: Optional[torch.Tensor] = None,
+       dot: Optional[Callable] = None) -> CGResult:
     """Block conjugate gradient for SPD operators; each RHS column iterates
     with its own alpha/beta.  Stops when every column's residual norm is at
     most ``tol`` or after ``maxiter`` iterations.  ``minv`` [n] turns on
     Jacobi preconditioning (the stop test stays on the true residual).
     Without ``x0`` the start is 0 exactly and its residual is ``b``: no
-    operator application multiplies a zero block."""
+    operator application multiplies a zero block.  ``dot(u, v)`` gives the
+    per-column inner products (default: the column sums of u * v); a
+    row-sharded solve passes one that also sums over the processes holding
+    the other rows, so that every process reads the same stop test."""
     squeeze = b.dim() == 1
     if squeeze:
         b = b[:, None]
     x = torch.zeros_like(b) if x0 is None else (x0[:, None] if squeeze else x0)
+    if dot is None:
+        def dot(u, v):
+            return torch.sum(u * v, dim=0)
 
     def precond(r):
         return r if minv is None else minv[:, None] * r
@@ -49,18 +56,18 @@ def cg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     r = b if x0 is None else b - matvec(x)
     z = precond(r)
     p = z
-    rs = torch.sum(r * r, dim=0)
-    rz = torch.sum(r * z, dim=0)
+    rs = dot(r, r)
+    rz = dot(r, z)
     it = 0
     while it < maxiter and bool(torch.any(torch.sqrt(rs) > tol)):
         ap = matvec(p)
-        denom = torch.sum(p * ap, dim=0)
+        denom = dot(p, ap)
         alpha = torch.where(denom > 0, rz / denom, torch.zeros_like(rz))
         x = x + alpha[None, :] * p
         r = r - alpha[None, :] * ap
         z = precond(r)
-        rs = torch.sum(r * r, dim=0)
-        rz_new = torch.sum(r * z, dim=0)
+        rs = dot(r, r)
+        rz_new = dot(r, z)
         beta = torch.where(rz > 0, rz_new / rz, torch.zeros_like(rz))
         p = z + beta[None, :] * p
         rz = rz_new

@@ -26,8 +26,11 @@ to the host once an iteration.  The device work is float32, the REML glue
 numpy float64, as in the reference.  On an out-of-core
 :class:`StreamedGeno` (``SingleStepHInv._kind == "streamed"``), Gw^-1 is
 the container's host PCG and the MME's outer CG is
-:func:`solve.cg.host_pcg`, each matvec streaming the chunks, as in the reference; the sharded containers
-raise NotImplementedError (ROADMAP A13).
+:func:`solve.cg.host_pcg`, each matvec streaming the chunks, as in the
+reference.  On a SNP-sharded :class:`parallel.ShardedGeno`
+(``_kind == "sharded"``) the Gw products are the sharded operator (one
+psum each) and diag(G) the sharded exact diagonal, also as in the
+reference; a ShardedGeno2D raises TypeError, as there.
 """
 from __future__ import annotations
 
@@ -38,6 +41,8 @@ import torch
 
 from .gblup import _check_container
 from .geno import from_bed
+from .parallel import (ShardedGeno, ShardedGeno2D, sharded_grm_diag,
+                       sharded_grm_matvec)
 from .pedigree import SparseCOO, a_inverse, check_pedigree, read_pedigree
 from .solve.cg import cg, grm_diag, grm_matvec, host_pcg
 from .streamed import StreamedGeno
@@ -83,8 +88,12 @@ class SingleStepHInv:
                  blend: float = 0.05, tau: float = 1.0, omega: float = 1.0,
                  inner_tol: float = 1e-6, inner_maxiter: int = 1000,
                  f: Optional[np.ndarray] = None):
+        if isinstance(g, ShardedGeno2D):
+            raise TypeError("SingleStepHInv takes a GenoMatrix, StreamedGeno "
+                            "or ShardedGeno, not a ShardedGeno2D")
         g = _check_container(g)
-        self._kind = "streamed" if isinstance(g, StreamedGeno) else "geno"
+        self._kind = ("streamed" if isinstance(g, StreamedGeno) else
+                      "sharded" if isinstance(g, ShardedGeno) else "geno")
         n = check_pedigree(sire, dam)
         geno_ids = np.asarray(geno_ids, np.int64)
         if geno_ids.min() < 1 or geno_ids.max() > n:
@@ -120,6 +129,7 @@ class SingleStepHInv:
 
         self._sigma2 = float(g.sigma2)
         gd = (self._vec(g.grm_diag(center=True)) if self._kind == "streamed"
+              else sharded_grm_diag(g) if self._kind == "sharded"
               else grm_diag(g, center=True))
         self._gw_diag = (1.0 - blend) * gd / self._sigma2 + blend
         self._gw_minv = 1.0 / self._gw_diag
@@ -132,7 +142,9 @@ class SingleStepHInv:
 
     # -- block operators (v2: [n2, k]) ------------------------------------
     def _gw(self, v2):
-        gv = grm_matvec(self.g, v2, center=True, scale=False) / self._sigma2
+        gv = (sharded_grm_matvec(self.g, v2) if self._kind == "sharded"
+              else grm_matvec(self.g, v2, center=True, scale=False)
+              ) / self._sigma2
         return (1.0 - self.blend) * gv + self.blend * v2
 
     def gw_inv(self, v2) -> torch.Tensor:

@@ -1046,3 +1046,123 @@ def test_host_resident_panel_launches_kernels_only(dev, tmp_path):
             gblup.gblup(res, y, n_pcs=2).g_hat)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     np.testing.assert_array_equal(got[2], want[2])
+
+
+def _sharded_world(tmp_path, dev):
+    """A world-1 NCCL group bound to the card, through a FileStore."""
+    from miraculix_tpu_torch import parallel
+
+    parallel.init_distributed(num_processes=1, process_id=0,
+                              backend="nccl", device_id=dev,
+                              init_method=f"file://{tmp_path}/store")
+
+
+@pytest.mark.parametrize("indiv,snps", [(300, 5000), (1100, 9000)])
+def test_sharded_four_shards_on_one_card(dev, tmp_path, indiv, snps):
+    """4 shards on cuda:0 in a world-1 NCCL group against the resident
+    panel at ragged shapes (a partial and an empty shard at 5,000 SNPs):
+    dgemm 'n'/'t' at 1, 33, 65 columns, the raw GRM exactly, CG, the 2D
+    GRM; no plain version runs; the group is torn down."""
+    import torch.distributed as dist
+
+    import miraculix_tpu_torch as mt
+    from miraculix_tpu_torch import parallel
+    from miraculix_tpu_torch.io import bed
+    from miraculix_tpu_torch.parallel import sharded, sharded2d
+
+    g = bed.simulate_genotypes(indiv, snps, seed=indiv)
+    res = mt.from_dense(g, device=dev)
+    _sharded_world(tmp_path, dev)
+    try:
+        mesh = parallel.make_mesh(devices=[dev] * 4)
+        sg = parallel.shard_genotypes(g, mesh)
+        s2 = parallel.shard_genotypes_2d(g, parallel.make_mesh_2d(
+            devices=[dev] * 4))
+        rng = np.random.default_rng(snps)
+        _kernels.reset_launch_counts()
+        for n in (1, 33, 65):
+            for trans, rows in (("n", snps), ("t", indiv)):
+                b = rng.standard_normal((rows, n)).astype(np.float32)
+                got = parallel.host_global(parallel.sharded_dgemm(
+                    sg, b, trans))
+                want = mt.dgemm(res, b, trans).cpu().numpy()
+                assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+        k3 = _kernels.LAUNCHES["crossprod"]
+        raw = sharded.sharded_crossprod(sg)
+        assert _kernels.LAUNCHES["crossprod"] == k3 + 4     # one a shard
+        assert raw.is_cuda and torch.equal(
+            raw, packed_crossprod(res.zq_n))
+        raw2 = parallel.host_global(sharded2d.sharded_crossprod_2d(s2))
+        assert np.array_equal(raw2[:indiv, :indiv],
+                              raw.cpu().numpy()[:indiv, :indiv])
+        rhs = rng.standard_normal(indiv).astype(np.float32)
+        r = parallel.sharded_cg_solve(sg, rhs, lam=40.0, tol=1e-4,
+                                      precondition=True)
+        w = mt.grm_cg_solve(res, rhs, lam=40.0, tol=1e-4, precondition=True)
+        x, xw = r.x.cpu().numpy(), w.x.cpu().numpy()
+        assert np.abs(x - xw).max() <= 1e-4 * np.abs(xw).max()
+        assert abs(r.iterations - w.iterations) <= 2
+        assert sum(_kernels.PLAIN_CALLS.values()) == 0
+        assert _kernels.LAUNCHES["tall_dgemm"] > 0
+        assert _kernels.LAUNCHES["wide_dgemm_split"] > 0
+        assert _kernels.LAUNCHES["crossprod_rect"] > 0
+        assert parallel.COLLECTIVES["dist.all_gather_into_tensor"]["calls"]
+    finally:
+        dist.destroy_process_group()
+    assert not dist.is_initialized()
+
+
+def _two_rank_worker(rank, store, out):
+    import torch.distributed as dist
+
+    import miraculix_tpu_torch as mt
+    from miraculix_tpu_torch import parallel
+    from miraculix_tpu_torch.io import bed
+
+    dev = torch.device("cuda", rank)
+    parallel.init_distributed(num_processes=2, process_id=rank,
+                              backend="nccl", device_id=dev,
+                              init_method=f"file://{store}")
+    g = bed.simulate_genotypes(500, 7000, seed=3)
+    sg = parallel.shard_genotypes(g, parallel.make_mesh(devices=[dev] * 2))
+    b = np.random.default_rng(1).standard_normal((500, 3)).astype(np.float32)
+    got = parallel.host_global(parallel.sharded_dgemm(sg, b, "t"))
+    want = mt.dgemm(mt.from_dense(g, device=dev), b, "t").cpu().numpy()
+    raw = parallel.host_global(parallel.sharded_grm(sg, scatter=True))
+    torch.save({"err": float(np.abs(got - want).max()
+                             / np.abs(want).max()),
+                "grm": raw}, f"{out}.{rank}")
+    dist.destroy_process_group()
+
+
+def test_sharded_two_ranks_on_two_cards(dev, tmp_path):
+    """One NCCL rank per card, 2 shards each (needs two cards)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import torch.multiprocessing as tmp
+
+    out = str(tmp_path / "out")
+    tmp.spawn(_two_rank_worker, args=(str(tmp_path / "store"), out),
+              nprocs=2)
+    r0, r1 = (torch.load(f"{out}.{k}", weights_only=False) for k in (0, 1))
+    assert r0["err"] <= 1e-5 and r1["err"] <= 1e-5
+    assert np.array_equal(r0["grm"], r1["grm"])
+
+
+@pytest.mark.parametrize("devices_per_proc", [1, 2])
+def test_mp_drive_one_nccl_rank_per_card(dev, devices_per_proc):
+    """The multi-process drive (the CPU tests' checklist) with one NCCL
+    rank per card and 1 or 2 shards on each (needs two cards)."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two CUDA devices")
+    from miraculix_tpu_torch.parallel import mp_check
+
+    _kernels.build()          # once, before the ranks load it
+    outs = mp_check.run_cluster(num_processes=count, timeout=600,
+                                snps=9000, indiv=600,
+                                devices_per_proc=devices_per_proc,
+                                backend="nccl")
+    for out in outs:
+        assert "MP_DRIVE_OK" in out and "kernel launches" in out
+        assert "dist.all_reduce" in out

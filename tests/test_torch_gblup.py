@@ -100,7 +100,7 @@ def test_snp_effects_and_predict_match_reference(panel):
 
 def test_gblup_rejects_unported_paths(panel):
     """solver="dense" is ported (the reference at 1e-4); unknown solvers and
-    the sharded and streamed containers are rejected."""
+    objects that are no genotype container are rejected."""
     g, ref, port = panel
     y, _ = ref_gblup.simulate_phenotypes(g, h2=0.5, seed=5)
     want = ref_gblup.gblup(ref, y, h2=0.5, n_pcs=2, solver="dense", seed=3)
@@ -111,5 +111,5 @@ def test_gblup_rejects_unported_paths(panel):
     assert got.cg_iterations == 0 and got.converged
     with pytest.raises(ValueError, match="solver"):
         pt_gblup.gblup(port, y, solver="lu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="not a genotype container"):
         pt_gblup.randomized_grm_pca(object())

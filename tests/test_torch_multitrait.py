@@ -216,5 +216,7 @@ def test_multi_trait_gblup_rejects_bad_inputs(panel):
     lambda g, y: pt_gblup._multi_v_solver(g, 3, np.ones(160), 1e-5, 10),
 ], ids=["multi_reml", "bivar_reml", "multi_trait_gblup", "multi_v_solver"])
 def test_unported_containers_raise(panel, fn):
-    with pytest.raises(NotImplementedError, match="A13"):
+    """Anything but a genotype container is refused with a TypeError
+    naming the accepted ones."""
+    with pytest.raises(TypeError, match="not a genotype container"):
         fn(object(), panel[3])

@@ -350,10 +350,11 @@ def test_run_ssgblup_reads_the_fam_phenotypes(tmp_path):
 
 
 def test_unported_containers_raise(panel, tmp_path):
-    """The sharded containers are not ported (ROADMAP A13); the streamed
-    one and ``run_ssgblup(stream_chunk=)`` are, and
-    tests/test_torch_streamed_paths.py holds them to the reference."""
-    with pytest.raises(NotImplementedError, match="A13"):
+    """Anything but a genotype container is refused with a TypeError; the
+    streamed one and ``run_ssgblup(stream_chunk=)`` are held to the
+    reference by tests/test_torch_streamed_paths.py, the sharded one by
+    tests/test_torch_sharded_paths.py."""
+    with pytest.raises(TypeError, match="not a genotype container"):
         ss.SingleStepHInv(panel["sire"], panel["dam"], object(),
                           panel["geno_ids"])
 
