@@ -141,7 +141,31 @@ codec of ``miraculix_tpu_torch/io/native`` and
    ``save_sharded``/``load_sharded``, and ``ssgblup`` on the "ssgblup"
    cell sharded 4 ways; each call beside the resident one with its
    launches, no plain version, and its collectives' calls and bytes; the
-   group is destroyed before the phase ends.
+   group is destroyed before the phase ends;
+11. runs the user surface on the many_indiv fileset, each call from the
+   counters' zero with its seconds and launches: the C API in the flow of
+   the reference's tests/dgemm_compressed/test.jl (``set_options`` ->
+   ``read_bed`` -> ``plink_transpose_packed`` -> ``plink2compressed`` ->
+   ``dgemm_compressed`` 'N' and 'T' at 10 columns, within 1e-5 of max of
+   float64 products of the panel decoded on the host from the .bed bytes;
+   ``get_compressed_freq`` bit-equal to ``from_bed``'s; a second
+   ``plink2compressed`` a cache hit with no pack; ``dgemm_plink``
+   uncentered (K1) and centered (K2) equal within 1e-5 to
+   ``dgemm_compressed`` under the same options; ``sparse_times_plink`` at
+   32 and 1,000 rows over the animals and 32 over the SNPs at 1% density
+   against float64 S @ Z; ``free_compressed`` lowering
+   ``torch.cuda.memory_allocated`` by at least the two packings, the next
+   ``plink2compressed`` a miss; one ``dgemm_compressed`` under
+   ``device_trace``); the R API on a TWO_BIT ``CodedMatrix`` of the panel
+   (``geno_vector``, ``vector_geno``, ``vector_rel_matrix`` against
+   float64, ``crossprod`` and ``crossprod_int`` equal to ``snp_crossprod``,
+   ``allele_freq``, the ``transpose`` round trip); MoBPS's
+   ``compute_relationship`` on 1,024 reconstructed animals (its diagonal
+   equal to ``grm`` of ``compute_snps``' genotypes, the matrix within 1e-5
+   of the float64 GRM definition); and, timed on the host, ``snp_stats``
+   (counts equal to numpy's on 256 SNPs), ``qc_filter(maf=0.01,
+   geno=0.05, hwe=1e-6)`` read back by ``from_bed``, ``rel_cutoff`` on the
+   panel's GRM and its GCTA files written and read back bit-equal.
 
 Earlier lines report the compiler's registers and spills (and, for the
 integer, wide and weighted kernels, their shared memory and resident blocks
@@ -202,8 +226,12 @@ LD_BLOCK = 4096               # ld_windowed's row block: [4096, 4608] products
 # (the 4-trait block, 4 (4 + 1 + 8)); 4, 6, 12, 18 and 32 recur there (the
 # 4-trait Y and probes, multi_trait_gblup's t (t p + 1), the bivariate AI
 # block t t (t + 1), REML's block p + 1 + 16); the 4-trait AI block (80
-# columns) takes the wide kernel
-TALL_NCOLS = (32, 1, 2, 4, 6, 8, 9, 12, 16, 18, 21, 22, 33, 52, 64, 128)
+# columns) takes the wide kernel.  Phase 11 adds 10 (the C API's
+# dgemm_compressed and dgemm_plink, centered and not, at the reference's
+# tests/dgemm_compressed/test.jl width); its sparse products at 32 rows
+# take f32 32
+TALL_NCOLS = (32, 1, 2, 4, 6, 8, 9, 10, 12, 16, 18, 21, 22, 33, 52, 64,
+              128)
 # phase 7: the sparse solve of benchmark.py's "sparse_solve" cell (n, RHS
 # columns; a float32 solver at bs 512) and its limit on ||T X - I|| /
 # (||T|| ||X||) over 64 inverted diagonal blocks; the single-step cells:
@@ -227,6 +255,10 @@ SS_SMALL_REML = (120, 48, 600)
 # streamed (relative), both ~1e-6 of |rhs| so the two scans agree to 1e-4
 STREAM_CHUNK = 16384
 STREAM_MIXED_TOL = (1e-4, 1e-6)
+# phase 11: MoBPS offspring reconstructed for compute_relationship, cut
+# from the panel's 16,384 animals: the reconstruction is a Python loop an
+# animal (a few ms each at 65,536 SNPs)
+MOBPS_ANIMALS = 1024
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 and
 # int8 tensor cores, and HBM; a kernel's bound is the larger of ops/peak
@@ -1230,6 +1262,326 @@ def sharded_phase(dev, sync_time, take_counts, bed_path, y, yb, cov, chrom,
     check(not dist.is_initialized(), "the process group outlived phase 10")
     log(f"phase 10 (sharded) total: {time.perf_counter() - t_phase:.3f} s")
 
+
+def mobps_population(rng, n_founders: int, n_animals: int):
+    """A MoBPS population over the many_indiv SNPs: ``n_founders`` sires and
+    as many dams with materialized haplotypes (allele frequencies uniform
+    in [0.05, 0.5]), and ``n_animals`` offspring (generation 2) whose
+    haplotypes are recombination recipes: a sire's two haplotypes for the
+    first, a dam's for the second, one breakpoint each, two mutations a
+    haplotype.  Returns the population and the offspring's (generation,
+    sex, nr) selection."""
+    import numpy as np
+
+    from miraculix_tpu_torch import mobps
+
+    p = rng.uniform(0.05, 0.5, N_SNPS)
+    ind = {}
+    for sex in (1, 2):
+        for nr in range(1, n_founders + 1):
+            ind[(1, sex, nr)] = mobps.Individual(
+                haplo=(rng.random((2, N_SNPS)) < p).astype(np.uint8))
+    for nr in range(1, n_animals + 1):
+        parents = rng.integers(1, n_founders + 1, 2)
+        cuts = rng.integers(1, N_SNPS, 2).astype(np.float64)
+        ind[(2, 1 + nr % 2, nr)] = mobps.Individual(
+            recombi=tuple([0.0, c, float(N_SNPS)] for c in cuts),
+            origins=tuple(mobps.code_origins(np.array(
+                [[1, sex, parents[sex - 1], 1], [1, sex, parents[sex - 1],
+                                                 2]])) for sex in (1, 2)),
+            mutations=tuple(rng.integers(0, N_SNPS, 2) for _ in range(2)))
+    sel = ([2] * n_animals, [1 + nr % 2 for nr in range(1, n_animals + 1)],
+           list(range(1, n_animals + 1)))
+    return mobps.Population(snps=N_SNPS, individuals=ind), sel
+
+
+def facades_phase(dev, sync_time, take_counts, bed_path):
+    """Phase 11: the user surface at full width on the many_indiv fileset.
+    The C API in the flow of the reference's tests/dgemm_compressed/test.jl
+    (``set_options`` -> ``read_bed`` -> ``plink_transpose_packed`` ->
+    ``plink2compressed`` -> ``dgemm_compressed`` 'N'/'T' at 10 columns,
+    ``get_compressed_freq``, a cache hit, ``dgemm_plink`` uncentered and
+    centered, ``sparse_times_plink`` at 32 and 1,000 rows and over the
+    SNPs, ``free_compressed`` and its memory); the R API on a TWO_BIT
+    ``CodedMatrix`` of the panel; MoBPS's ``compute_relationship`` on 1,024
+    reconstructed animals; QC, ``rel_cutoff`` and the GCTA GRM files (host
+    work, timed); the banner and a ``device_trace``.  Each device call is
+    counted from zero and printed with its launches; no plain version may
+    run.  Products are held to float64 products on the card of the panel
+    decoded on the host from the .bed bytes (1e-5 of max |want|)."""
+    import numpy as np
+    import scipy.sparse
+    import torch
+
+    from miraculix_tpu_torch import (_kernels, api, from_bed, from_dense, grm,
+                                     mobps, qc, rapi, snp_crossprod)
+    from miraculix_tpu_torch.formats import Coding, CodedMatrix, encode
+    from miraculix_tpu_torch.io import bed, codec, grm_io, native
+    from miraculix_tpu_torch.utils import logging as mlog
+    from miraculix_tpu_torch.utils import panel_cache
+
+    t_phase = time.perf_counter()
+    with contextlib.redirect_stderr(sys.stdout):   # the banner line
+        mlog.print_compile_info()
+    panel_cache.clear()
+
+    def call(name, fn):
+        _kernels.reset_launch_counts()
+        out, secs = sync_time(fn)
+        plain = dict(_kernels.PLAIN_CALLS)
+        take_counts(f"facades {name}")
+        log(f"phase facades {name}: {secs:.3f} s")
+        check(not plain, f"facades {name}: plain versions ran: {plain}")
+        return out, secs
+
+    def host(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs = time.perf_counter() - t0
+        log(f"phase facades {name} (host): {secs:.3f} s")
+        return out, secs
+
+    def rel(got, want):
+        got = got.cpu() if isinstance(got, torch.Tensor) else \
+            torch.as_tensor(np.asarray(got))
+        got, want = got.double(), torch.as_tensor(want).double().cpu()
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"shape {tuple(got.shape)} against {tuple(want.shape)}")
+        return float((got - want).abs().max() / want.abs().max())
+
+    def held(name, got, want, tol=1e-5):
+        r = rel(got, want)
+        log(f"check facades {name}: rel={r:.3g} (limit {tol:g})")
+        check(r <= tol, f"facades {name}: rel {r:.3g} > {tol:g}")
+
+    # -- 11a. the C API (tests/dgemm_compressed/test.jl) ---------------------
+    api.set_options(use_gpu=True, print_details=0)
+    (plink, n_snps, n_indiv), _ = host("read_bed", lambda: bed.read_bed(
+        bed_path))
+    plink_t, _ = host("plink_transpose_packed", lambda: (
+        codec.plink_transpose_packed(plink, n_indiv, n_snps)))
+    dense, _ = host("plink_to_dense (the references' panel)",
+                    lambda: codec.plink_to_dense(plink, n_indiv))
+    freq = codec.allele_freq(dense)
+    check((n_snps, n_indiv) == (N_SNPS, N_INDIV), "the fileset's shape")
+
+    blk = 2048
+
+    def f64_blocks():
+        """Row blocks of the host-decoded panel, float64 on the card."""
+        for r0 in range(0, N_INDIV, blk):
+            yield r0, torch.as_tensor(dense[r0:r0 + blk], device=dev).double()
+
+    def zt_times(x):
+        """Z^T x in float64 on the card, x [indiv, n]."""
+        x = torch.as_tensor(x, device=dev).double()
+        return sum(zb.T @ x[r0:r0 + blk] for r0, zb in f64_blocks())
+
+    def z_times(x):
+        """Z x in float64 on the card, x [snps, n]."""
+        x = torch.as_tensor(x, device=dev).double()
+        return torch.cat([zb @ x for _, zb in f64_blocks()])
+
+    rng = np.random.default_rng(SEED + 11)
+    b = rng.standard_normal((N_SNPS, 10))
+    bt = rng.standard_normal((N_INDIV, 10))
+    f2 = torch.as_tensor(2.0 * freq, device=dev)
+    want_n = z_times(b) - (f2 @ torch.as_tensor(b, device=dev))[None, :]
+    want_t = zt_times(bt) - f2[:, None] * torch.as_tensor(
+        bt, device=dev).sum(0)[None, :]
+
+    native.reset_call_counts()
+    obj, secs_pack = call("plink2compressed", lambda: api.plink2compressed(
+        plink, plink_t, n_snps, n_indiv, freq, 10))
+    check(obj.device.type == "cuda" and panel_cache.misses == 1,
+          "plink2compressed did not build a panel on the card")
+    packed = obj.nbytes
+    c, _ = call("dgemm_compressed N ncol=10",
+                lambda: api.dgemm_compressed("N", obj, 10, b))
+    held("dgemm_compressed N ncol=10 vs float64", c, want_n)
+    c_t, _ = call("dgemm_compressed T ncol=10",
+                  lambda: api.dgemm_compressed("T", obj, 10, bt))
+    held("dgemm_compressed T ncol=10 vs float64", c_t, want_t)
+    gm, _ = call("from_bed", lambda: from_bed(bed_path, device=dev))
+    f_out = api.get_compressed_freq(obj)
+    same = np.array_equal(f_out.astype(np.float32), gm.freq.cpu().numpy()) \
+        and np.array_equal(f_out, freq.astype(np.float32).astype(np.float64))
+    log(f"check facades get_compressed_freq bit-equal to from_bed's freq: "
+        f"{same}")
+    check(same, "get_compressed_freq differs from from_bed's freq")
+    packs = native.CALLS["pack_planar16"]
+    hits = panel_cache.hits
+    again, secs_hit = call("plink2compressed again (cache hit)",
+                           lambda: api.plink2compressed(
+                               plink, plink_t, n_snps, n_indiv, freq, 10))
+    log(f"  the digest of {plink.nbytes / 1e6:.1f} MB: {secs_hit:.3f} s "
+        f"against {secs_pack:.3f} s for the pack")
+    check(again is obj and panel_cache.hits == hits + 1
+          and native.CALLS["pack_planar16"] == packs,
+          "the second plink2compressed was not a cache hit")
+    del again
+
+    cu, _ = call("dgemm_plink N ncol=10 f=None (K1)", lambda: api.dgemm_plink(
+        "N", plink, None, n_snps, n_indiv, None, 10, b))
+    cc, _ = call("dgemm_plink N ncol=10 f=freq (K2)", lambda: (
+        api.dgemm_plink("N", plink, None, n_snps, n_indiv, freq, 10, b)))
+    api.set_options(use_gpu=True, do_not_center=1)
+    cu_ref = api.dgemm_compressed("N", obj, 10, b)
+    api.set_options(use_gpu=True)
+    held("dgemm_plink f=None vs dgemm_compressed uncentered", cu, cu_ref)
+    held("dgemm_plink f=freq vs dgemm_compressed", cc, c)
+    held("dgemm_plink f=None vs float64", cu, want_n + (
+        f2 @ torch.as_tensor(b, device=dev))[None, :])
+    del want_n, want_t, cu_ref
+
+    def csr(rows, cols, density):
+        s = scipy.sparse.random(rows, cols, density=density, format="csr",
+                                random_state=rng, data_rvs=rng.standard_normal)
+        return s, s.indptr + 1, s.indices + 1, s.data
+
+    for rows, tg in ((32, "N"), (1000, "N"), (32, "T")):
+        contract = N_INDIV if tg == "N" else N_SNPS
+        s, ia, ja, a = csr(rows, contract, 0.01)
+        got, _ = call(f"sparse_times_plink N {tg} n_idx={rows} nnz={s.nnz}",
+                      lambda: api.sparse_times_plink(
+                          "N", tg, plink, None, n_snps, n_indiv, rows, ia,
+                          ja, a))
+        sd = torch.as_tensor(s.toarray(), device=dev)
+        if tg == "N":
+            want = sum(sd[:, r0:r0 + blk] @ zb for r0, zb in f64_blocks())
+        else:
+            want = torch.cat([sd @ zb.T for _, zb in f64_blocks()], dim=1)
+        held(f"sparse_times_plink N {tg} n_idx={rows} vs float64 S @ Z",
+             got, want)
+        del sd, want
+
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated(dev)
+    _, secs = sync_time(lambda: api.free_compressed(obj))
+    m1 = torch.cuda.memory_allocated(dev)
+    log(f"phase facades free_compressed: {secs:.3f} s, memory_allocated "
+        f"{m0 / 1e6:.1f} -> {m1 / 1e6:.1f} MB (the packings: "
+        f"{packed / 1e6:.1f} MB)")
+    check(m0 - m1 >= packed and obj.zq_n is None,
+          "free_compressed did not release the panel's device memory")
+    misses = panel_cache.misses
+    obj2, _ = call("plink2compressed after free_compressed (a miss)",
+                   lambda: api.plink2compressed(plink, plink_t, n_snps,
+                                                n_indiv, freq, 10))
+    check(panel_cache.misses == misses + 1 and obj2.zq_n is not None,
+          "plink2compressed after free_compressed was not a miss")
+    trace = os.path.join(os.path.dirname(bed_path), "trace")
+    with mlog.device_trace(trace):
+        call("dgemm_compressed N ncol=10 under device_trace",
+             lambda: api.dgemm_compressed("N", obj2, 10, b))
+    files = os.listdir(trace)
+    log(f"check facades device_trace: {files}")
+    check(len(files) == 1 and os.path.getsize(
+        os.path.join(trace, files[0])) > 0, "device_trace wrote no trace")
+    api.free_compressed(obj2)
+    panel_cache.clear()
+    api.set_options()
+    del obj, obj2, plink_t
+    torch.cuda.empty_cache()
+
+    # -- 11b. the R API on a TWO_BIT CodedMatrix of the panel ---------------
+    buf, _ = host("encode TWO_BIT", lambda: encode(dense, Coding.TWO_BIT))
+    m = CodedMatrix(buf, Coding.TWO_BIT, N_SNPS, N_INDIV)
+    _, _ = host("CodedMatrix.dense()", m.dense)
+    v1, w1 = rng.standard_normal(N_SNPS), rng.standard_normal(N_INDIV)
+    gv, _ = call("rapi.geno_vector ncol=1 (first: decode and pack)",
+                 lambda: rapi.geno_vector(m, v1))
+    gv, _ = call("rapi.geno_vector ncol=1", lambda: rapi.geno_vector(m, v1))
+    held("rapi.geno_vector vs float64", gv, z_times(v1[:, None]))
+    vg, _ = call("rapi.vector_geno ncol=1", lambda: rapi.vector_geno(m, w1))
+    held("rapi.vector_geno vs float64", vg, zt_times(w1[:, None]))
+    vr, _ = call("rapi.vector_rel_matrix ncol=1",
+                 lambda: rapi.vector_rel_matrix(m, w1))
+    held("rapi.vector_rel_matrix vs float64 Z (Z^T v)", vr,
+         z_times(zt_times(w1[:, None])))
+    want = snp_crossprod(gm).cpu()
+    cp, _ = call("rapi.crossprod", lambda: rapi.crossprod(m))
+    same = torch.equal(torch.from_numpy(cp), want)
+    del cp
+    cpi, _ = call("rapi.crossprod_int", lambda: rapi.crossprod_int(m))
+    same_int = cpi.dtype == np.int64 and torch.equal(
+        torch.from_numpy(cpi), want.long())
+    log(f"check facades rapi.crossprod / crossprod_int equal to "
+        f"snp_crossprod(from_bed): {same} / {same_int}")
+    check(same and same_int, "rapi.crossprod differs from snp_crossprod")
+    del cpi, want
+    af, _ = host("rapi.allele_freq", lambda: rapi.allele_freq(m))
+    check(np.array_equal(af, freq) and np.array_equal(
+        af.astype(np.float32), gm.freq.cpu().numpy()),
+        "rapi.allele_freq differs from freq")
+    mt_, _ = host("rapi.transpose", lambda: rapi.transpose(m))
+    back, _ = host("rapi.transpose back", lambda: rapi.transpose(mt_))
+    same = (mt_.snps, mt_.indiv) == (N_INDIV, N_SNPS) and np.array_equal(
+        back.buf, m.buf)
+    log(f"check facades rapi.transpose round trip: {same}")
+    check(same, "rapi.transpose round trip")
+    del mt_, back, buf, m
+    panel_cache.clear()
+    torch.cuda.empty_cache()
+
+    # -- 11c. MoBPS: compute_relationship on 1,024 reconstructed animals ----
+    pop, sel = mobps_population(rng, 64, MOBPS_ANIMALS)
+    g_mob, _ = call(f"mobps.compute_relationship ({MOBPS_ANIMALS} animals)",
+                    lambda: mobps.compute_relationship(pop, *sel))
+    geno_mob, _ = host("mobps.compute_snps", lambda: mobps.compute_snps(
+        pop, *sel))
+    g_ref = grm(from_dense(geno_mob, device=dev))
+    same = torch.equal(torch.diagonal(g_mob), torch.diagonal(g_ref))
+    z = torch.as_tensor(geno_mob, device=dev).double()
+    zc = z - z.mean(0, keepdim=True)
+    fm = z.mean(0) / 2.0
+    g64 = (zc @ zc.T) / (2.0 * (fm * (1.0 - fm)).sum())
+    log(f"check facades compute_relationship diagonal equal to grm(from_"
+        f"dense(compute_snps)): {same}")
+    check(same, "compute_relationship's diagonal differs from grm's")
+    held("compute_relationship vs float64 GRM definition", g_mob, g64)
+    del g_mob, g_ref, z, zc, g64, pop
+
+    # -- 11d. QC and GCTA GRM files (host) ------------------------------------
+    (counts, imiss), _ = host("qc.snp_stats", lambda: qc.snp_stats(bed_path))
+    d256 = dense[:, :256]
+    same = all(np.array_equal(counts[:256, v], (d256 == v).sum(axis=0))
+               for v in range(4)) and counts.shape == (N_SNPS, 4) \
+        and int(imiss.sum()) == int(counts[:, 3].sum())
+    log(f"check facades snp_stats counts vs numpy on 256 SNPs: {same}")
+    check(same, "snp_stats counts")
+    out = os.path.join(os.path.dirname(bed_path), "qc.bed")
+    (keep_s, keep_i), _ = host("qc.qc_filter(maf=0.01, geno=0.05, "
+                               "hwe=1e-6)", lambda: qc.qc_filter(
+                                   bed_path, out, maf=0.01, geno=0.05,
+                                   hwe=1e-6))
+    gq, _ = call("from_bed of the filtered fileset",
+                 lambda: from_bed(out, device=dev))
+    log(f"  qc_filter kept {int(keep_s.sum())} SNPs, {int(keep_i.sum())} "
+        f"animals")
+    check((gq.snps, gq.indiv) == (int(keep_s.sum()), int(keep_i.sum()))
+          and keep_i.all() and keep_s.sum() > 0.9 * N_SNPS,
+          "qc_filter's fileset")
+    del gq
+    g_full, _ = call("grm (for rel_cutoff and the GCTA files)",
+                     lambda: grm(gm).cpu().numpy())
+    keep, _ = host("qc.rel_cutoff(0.125)",
+                   lambda: qc.rel_cutoff(g_full, 0.125))
+    log(f"  rel_cutoff keeps {int(keep.sum())} of {N_INDIV}")
+    check(keep.sum() > 0.99 * N_INDIV, "rel_cutoff on an unrelated panel")
+    prefix = os.path.join(os.path.dirname(bed_path), "panel")
+    host("grm_io.write_gcta_grm", lambda: grm_io.write_gcta_grm(
+        prefix, g_full, N_SNPS))
+    (g2, c2, ids), _ = host("grm_io.read_gcta_grm",
+                            lambda: grm_io.read_gcta_grm(prefix))
+    same = np.array_equal(g2, g_full.astype(np.float64)) \
+        and len(ids) == N_INDIV and bool((c2 == N_SNPS).all())
+    log(f"check facades GCTA GRM files round trip bit-equal in float32: "
+        f"{same}")
+    check(same, "the GCTA GRM files")
+    del g_full, g2, c2, gm, dense
+    torch.cuda.empty_cache()
+    log(f"phase 11 (facades) total: {time.perf_counter() - t_phase:.3f} s")
 
 def small_single_step(dev, small, seed):
     """Phase 8's single-step part: the sparse solver (n = 5,000, bs 300:
@@ -2672,6 +3024,9 @@ def main() -> int:
     # -- 10. the parallel layer, 4 shards on the card, counted ---------------
     sharded_phase(dev, sync_time, take_counts, bed_path, y, yb, cov, chrom,
                   resident, secs_of, cell)
+
+    # -- 11. the user surface: C API, R API, MoBPS, QC, GRM files, counted --
+    facades_phase(dev, sync_time, take_counts, bed_path)
     fileset.cleanup()
     missing = [k for k in SOURCES if launches[k] == 0]
     check(not missing, f"never launched on a main path: {missing}")

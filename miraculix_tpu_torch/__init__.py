@@ -15,7 +15,13 @@ memory, whole (``device_put=False``) or as the out-of-core
 panels sharded over a mesh of devices and processes
 (``miraculix_tpu_torch.parallel``: SNP-sharded and 2D-sharded, over
 ``torch.distributed``), which GBLUP, REML, the scans and single-step take
-as they take a panel.
+as they take a panel; and the user surface: ``Options`` and the global
+option latch, the reference's storage codings and any-to-any transform
+(``formats``), VCF ingestion and GCTA GRM files (``io.vcf``,
+``io.grm_io``), panel QC (``qc``), the MoBPS bridge (``mobps``), the
+float64 oracles (``ops.ref_impl``), the packed-panel cache, logging and
+tracing (``utils``), and the reference's C API and R API as the facades
+``api`` and ``rapi`` (submodules, as in the reference).
 The packed products run in hand-written CUDA kernels
 (``csrc/``, built at first use by ``_kernels``); on CPU tensors every op
 takes the plain torch version of its kernel.  Panels go to the CUDA card
@@ -47,6 +53,7 @@ from .solve import (CGResult, DenseSolveResult, RelMatResult, chol2inv,
                     solve_posdef, solve_relmat, sqrt_posdef, sqrt_rhs,
                     SparseTriangularSolver, x_cinv_y_logdet)
 from .solve.cg import cg, grm_cg_solve, grm_diag, grm_matvec, jacobi_minv
+from .options import Options, get_global_options, set_global_options
 from .ssgblup import SingleStepHInv
 from .streamed import StreamedGeno
 
@@ -59,6 +66,7 @@ __all__ = [
     "GenoMatrix",
     "MTGBLUPResult",
     "MixedGWASResult",
+    "Options",
     "RelMatResult",
     "SingleStepHInv",
     "SparseCOO",
@@ -81,6 +89,7 @@ __all__ = [
     "from_plink",
     "from_reference_state",
     "gblup_from_grm",
+    "get_global_options",
     "grm",
     "grm_blocked",
     "grm_cg_solve",
@@ -112,6 +121,7 @@ __all__ = [
     "pairwise_nonmissing",
     "run_gblup",
     "save",
+    "set_global_options",
     "snp_crossprod",
     "solve_posdef",
     "solve_relmat",

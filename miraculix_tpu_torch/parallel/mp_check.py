@@ -48,9 +48,9 @@ def write_oracle(workdir: str, indiv: int = 48, snps: int = 700,
              rhs=rng.standard_normal(indiv).astype(np.float32))
 
 
-def run_cluster(num_processes: int = 2, timeout: float = 600.0,
+def run_cluster(num_processes: int = 2, timeout: float = 900.0,
                 indiv: int = 48, snps: int = 700, devices_per_proc: int = 4,
-                fail_process: int = None,
+                fail_process: int = None, *,
                 collective_timeout: float = 60.0,
                 backend: str = "gloo") -> list:
     """Spawn the N-process drive; raise with every worker's log on any

@@ -173,13 +173,37 @@ def test_freq_cache_family_matches_reference():
 
 
 def test_port_imports_without_jax():
-    """The port and its native codec load nothing of jax or of the JAX
-    package; the codec library is built from the port's own source into the
-    port's git-ignored build directory."""
-    code = ("import sys, miraculix_tpu_torch, miraculix_tpu_torch.gblup, "
+    """The port (its user surface too), its native codec and chip_smoke.py
+    load nothing of jax or of the JAX package, and no import statement in
+    them names one (the smoke imports the port inside its functions); the
+    codec library is built from the port's own source into the port's
+    git-ignored build directory."""
+    import ast
+    from pathlib import Path
+
+    sources = [Path(REPO, "chip_smoke.py")] + sorted(
+        Path(REPO, "miraculix_tpu_torch").rglob("*.py"))
+    for src in sources:
+        for node in ast.walk(ast.parse(src.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                names = [node.module]
+            else:
+                continue
+            assert not [n for n in names if n.split(".")[0] in (
+                "jax", "miraculix_tpu")], (src, names)
+    code = ("import sys, chip_smoke, miraculix_tpu_torch, "
+            "miraculix_tpu_torch.gblup, "
             "miraculix_tpu_torch.io.bed, miraculix_tpu_torch.io.codec, "
             "miraculix_tpu_torch.io.native, miraculix_tpu_torch.ops.grm, "
-            "miraculix_tpu_torch._kernels; "
+            "miraculix_tpu_torch._kernels, miraculix_tpu_torch.api, "
+            "miraculix_tpu_torch.rapi, miraculix_tpu_torch.options, "
+            "miraculix_tpu_torch.formats, miraculix_tpu_torch.qc, "
+            "miraculix_tpu_torch.mobps, miraculix_tpu_torch.io.vcf, "
+            "miraculix_tpu_torch.io.grm_io, miraculix_tpu_torch.ops.ref_impl, "
+            "miraculix_tpu_torch.utils.logging, "
+            "miraculix_tpu_torch.utils.panel_cache; "
             "from pathlib import Path; "
             "from miraculix_tpu_torch.io import native; "
             "lib = Path(native.get_lib()._name).resolve(); "
@@ -195,21 +219,54 @@ def test_port_imports_without_jax():
                    cwd=REPO, timeout=120)
 
 
+FACADES = ["api.plink2compressed", "api.dgemm_plink",
+           "api.sparse_times_plink", "rapi.geno_vector", "rapi.vector_geno",
+           "rapi.crossprod", "rapi.crossprod_int", "rapi.vector_rel_matrix",
+           "mobps.compute_relationship"]
+
+
 @pytest.mark.parametrize("entry", ["from_dense", "from_bed", "from_plink",
-                                   "load", "from_reference_state"])
+                                   "load", "from_reference_state"] + FACADES)
 def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
     """With no device named, a panel goes to the CUDA card; where there is
-    none that raises, and nothing falls back to the CPU."""
+    none that raises, and nothing falls back to the CPU.  The C API, the R
+    API and the MoBPS bridge build their panels the same way."""
+    from miraculix_tpu_torch import api, mobps, rapi
+    from miraculix_tpu_torch.formats import Coding, CodedMatrix, encode
+    from miraculix_tpu_torch.utils import panel_cache
+
     g = ref_bed.simulate_genotypes(12, 40, seed=3)
     path = str(tmp_path / "p.bed")
     pt_bed.write_bed(path, g)
     npz = str(tmp_path / "p.npz")
     mt.save(npz, mt.from_dense(g, device=CPU))
     plink, n_snps, n_indiv = pt_bed.read_bed(path)
+    m = CodedMatrix(encode(g, Coding.TWO_BIT), Coding.TWO_BIT, 40, 12)
+    pop = mobps.Population(snps=40, individuals={
+        (1, 1, n): mobps.Individual(haplo=np.stack([g[n] & 1, g[n] >> 1]))
+        for n in range(1, 4)})
     args = {"from_dense": (g,), "from_bed": (path,),
             "from_plink": (plink, n_snps, n_indiv), "load": (npz,),
-            "from_reference_state": (ref_state(mx.from_dense(g)),)}[entry]
+            "from_reference_state": (ref_state(mx.from_dense(g)),),
+            "api.plink2compressed": (plink, None, 40, 12),
+            "api.dgemm_plink": ("N", plink, None, 40, 12, None, 1,
+                                np.ones((40, 1))),
+            "api.sparse_times_plink": ("N", "N", plink, None, 40, 12, 1,
+                                       np.array([1, 2]), np.array([1]),
+                                       np.array([1.0])),
+            "rapi.geno_vector": (m, np.ones(40)),
+            "rapi.vector_geno": (m, np.ones(12)),
+            "rapi.crossprod": (m,), "rapi.crossprod_int": (m,),
+            "rapi.vector_rel_matrix": (m, np.ones(12)),
+            "mobps.compute_relationship": (pop, [1, 1], [1, 1], [1, 2]),
+            }[entry]
+    mod, _, name = entry.rpartition(".")
+    fn = getattr({"": mt, "api": api, "rapi": rapi, "mobps": mobps}[mod],
+                 name)
+    panel_cache.clear()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        getattr(mt, entry)(*args)
-    assert getattr(mt, entry)(*args, device=CPU).device.type == "cpu"
+        fn(*args)
+    out = fn(*args, device=CPU)
+    panel_cache.clear()
+    assert isinstance(out, np.ndarray) or out.device.type == "cpu"

@@ -1166,3 +1166,70 @@ def test_mp_drive_one_nccl_rank_per_card(dev, devices_per_proc):
     for out in outs:
         assert "MP_DRIVE_OK" in out and "kernel launches" in out
         assert "dist.all_reduce" in out
+
+
+
+def test_facades_on_the_card_match_the_cpu(dev):
+    """The C API, the R API and the MoBPS bridge on a ragged panel (301
+    animals x 1,003 SNPs) on the card against their CPU path; on the card
+    the kernels run and no plain version does; ``free_compressed`` releases
+    the panel's device memory."""
+    from miraculix_tpu_torch import api, mobps, rapi
+    from miraculix_tpu_torch.formats import Coding, CodedMatrix, encode
+    from miraculix_tpu_torch.io import bed, codec
+    from miraculix_tpu_torch.utils import panel_cache
+
+    g = bed.simulate_genotypes(301, 1003, seed=16, missing_rate=0.01)
+    plink = codec.dense_to_plink(g)
+    freq = codec.allele_freq(g)
+    rng = np.random.default_rng(16)
+    b, bt = rng.standard_normal((1003, 10)), rng.standard_normal((301, 10))
+    v, w = rng.standard_normal(1003), rng.standard_normal(301)
+    s = (rng.random((32, 301)) < 0.05) * rng.standard_normal((32, 301))
+    ia = np.concatenate([[0], np.cumsum((s != 0).sum(axis=1))]) + 1
+    ja, a = np.nonzero(s)[1] + 1, s[s != 0]
+    m = CodedMatrix(encode(g, Coding.TWO_BIT), Coding.TWO_BIT, 1003, 301)
+    pop = mobps.Population(snps=1003, individuals={
+        (1, 1, n + 1): mobps.Individual(haplo=np.stack(
+            [(g[n] >= 1) & (g[n] != 3), g[n] == 2]).astype(np.uint8))
+        for n in range(40)})
+    sel = ([1] * 40, [1] * 40, list(range(1, 41)))
+    out = {}
+    panel_cache.clear()
+    api.set_options(use_gpu=True)
+    for d in ("cpu", dev):
+        _kernels.reset_launch_counts()
+        obj = api.plink2compressed(plink, None, 1003, 301, freq, device=d)
+        assert obj.device.type == torch.device(d).type
+        out[str(d)] = {
+            "N": api.dgemm_compressed("N", obj, 10, b),
+            "T": api.dgemm_compressed("T", obj, 10, bt),
+            "plink": api.dgemm_plink("N", plink, None, 1003, 301, None, 10,
+                                     b, device=d),
+            "sparse": api.sparse_times_plink("N", "N", plink, None, 1003,
+                                             301, 32, ia, ja, a, device=d),
+            "geno_vector": rapi.geno_vector(m, v, device=d),
+            "rel": rapi.vector_rel_matrix(m, w, device=d),
+            "crossprod": rapi.crossprod_int(m, device=d),
+            "freq": api.get_compressed_freq(obj),
+            "mobps": mobps.compute_relationship(pop, *sel,
+                                                device=d).cpu().numpy()}
+    api.set_options()
+    launched = {k for k, n in _kernels.LAUNCHES.items() if n}
+    assert {"tall_dgemm", "tall_dgemm_cv", "crossprod"} <= launched
+    assert not _kernels.PLAIN_CALLS
+    cpu, gpu = out["cpu"], out[str(dev)]
+    for k in cpu:
+        if cpu[k].dtype.kind in "iu" or k == "freq":
+            np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)
+        else:
+            err = np.abs(gpu[k] - cpu[k]).max() / np.abs(cpu[k]).max()
+            assert err <= 1e-5, (k, err)
+    panel_cache.clear()
+    obj = api.plink2compressed(plink, None, 1003, 301, device=dev)
+    nbytes = obj.nbytes
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    api.free_compressed(obj)
+    assert obj.zq_n is None and obj.zq_t is None and obj.freq is None
+    assert before - torch.cuda.memory_allocated(dev) >= nbytes

@@ -326,6 +326,26 @@ def test_public_names_and_signatures():
         assert all(p.kind == p.KEYWORD_ONLY for p in extra), name
 
 
+def test_run_cluster_signature_matches_reference():
+    """``mp_check.run_cluster`` takes the reference's parameters with the
+    reference's defaults (timeout 900 s); the port's two additions are
+    keyword-only."""
+    import inspect
+
+    from miraculix_tpu.parallel import mp_check as rmp
+    from miraculix_tpu_torch.parallel import mp_check
+
+    want = inspect.signature(rmp.run_cluster).parameters
+    got = inspect.signature(mp_check.run_cluster).parameters
+    assert list(got)[: len(want)] == list(want)
+    for name, p in want.items():
+        assert (got[name].kind, got[name].default) == (p.kind, p.default), \
+            name
+    extra = {n: got[n] for n in list(got)[len(want):]}
+    assert list(extra) == ["collective_timeout", "backend"]
+    assert all(p.kind == p.KEYWORD_ONLY for p in extra.values())
+
+
 @pytest.mark.parametrize("n_local", [1, 2])
 def test_psum_hands_distributed_contiguous_copies(monkeypatch, n_local):
     """A line spanning processes ends in an in-place ``all_reduce``: NCCL
