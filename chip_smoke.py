@@ -165,7 +165,45 @@ codec of ``miraculix_tpu_torch/io/native`` and
    of the float64 GRM definition); and, timed on the host, ``snp_stats``
    (counts equal to numpy's on 256 SNPs), ``qc_filter(maf=0.01,
    geno=0.05, hwe=1e-6)`` read back by ``from_bed``, ``rel_cutoff`` on the
-   panel's GRM and its GCTA files written and read back bit-equal.
+   panel's GRM and its GCTA files written and read back bit-equal;
+12. runs the CLI's 15 subcommands in process (``cli.main(["--device",
+   "cuda:0", ...])``) on the many_indiv fileset, its .bim put on phase 3's
+   4 chromosomes, each from the counters' zero with its seconds and
+   launches, exit 0 and no plain version, each output held to the library
+   call of an earlier phase on the same panel or the library call on the
+   same input: ``simulate`` on the 600 x 5,000 small panel (.bed
+   byte-equal to ``simulate_genotypes`` + ``write_bed``), ``validate``,
+   ``ingest`` (``geno.load`` bit-equal to ``from_bed``), ``grm`` with
+   ``--gcta-out`` (1e-6 of max, the GCTA files bit-equal), ``--method yang
+   --pair-denom`` (B9, one call) and ``--blocked`` (B8; 1e-5), ``ld
+   --window 512 --score`` and ``--prune-r2`` (1e-5, the prune lists
+   equal), ``qc --rel-cutoff`` on a 600 x 5,000 panel with missing calls
+   and rare variants (the fileset byte-equal
+   to ``qc_filter``'s, the IDs to ``rel_cutoff``'s), ``pedigree`` on a
+   2,000-animal pedigree (F as ``inbreeding``'s), ``gwas``
+   linear, ``--mixed --loco``, ``--logistic``, ``--stream-chunk 16384`` and
+   ``--mesh 4`` (four shards on the one card; 1e-4), ``gblup --estimate-h2
+   --h2-method reml --effects-out`` and ``score`` (1e-3), ``pca -k 10``,
+   ``reml`` HE, AI-REML, ``--bivar`` and ``--multi`` on 4 traits (phase 2's
+   estimates within 1e-3), ``ssgblup`` on phase 7's 32,768-animal pedigree
+   at the h2 of phase 7's single-step REML (EBVs within 1e-3 of phase 7's
+   ``run_ssgblup``) and ``bench --grm``; ``entry()`` against
+   ``ref_impl.dgemm_oracle`` (1e-5) and ``dryrun_multichip(4)`` with its
+   shards on the one card, neither running a plain version; then the six
+   examples as subprocesses at their default sizes, all at once (exit 0,
+   one wall time for the six).
+
+Cuts from the reference's own runs: phase 7's ``run_ssgblup`` pedigree has
+32,768 animals (65,536 took the phase 70 s); phase 11 reconstructs 1,024
+MoBPS animals; phase 12 runs the full LD matrix (``ld`` without
+``--window``) on the 600 x 5,000 small panel only (65,536^2 is 17 GB),
+the subcommands that launch no kernel at many_indiv (``simulate``, ``qc``'s
+filters and ``pedigree``: host work that phases 0, 11 and 7 already do at
+full size) on 600 x 5,000 panels and a 2,000-animal pedigree,
+``grm --method yang --pair-denom`` as one call (each reads the panel with
+its missing coordinates, ~12 s; the VanRaden ``--pair-denom`` path runs in
+the CPU tests) and ``ssgblup`` without ``--estimate-h2`` (phase 7 runs the
+single-step REML).
 
 Earlier lines report the compiler's registers and spills (and, for the
 integer, wide and weighted kernels, their shared memory and resident blocks
@@ -229,9 +267,11 @@ LD_BLOCK = 4096               # ld_windowed's row block: [4096, 4608] products
 # columns) takes the wide kernel.  Phase 11 adds 10 (the C API's
 # dgemm_compressed and dgemm_plink, centered and not, at the reference's
 # tests/dgemm_compressed/test.jl width); its sparse products at 32 rows
-# take f32 32
-TALL_NCOLS = (32, 1, 2, 4, 6, 8, 9, 10, 12, 16, 18, 21, 22, 33, 52, 64,
-              128)
+# take f32 32.  Phase 12 adds 3 (the CLI's gwas --logistic, no covariates:
+# the score pass [y - mu | w | w x] with x the intercept) and 5
+# (dryrun_multichip's LOCO CG: 4 sampled SNPs beside y)
+TALL_NCOLS = (32, 1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 16, 18, 21, 22, 33, 52,
+              64, 128)
 # phase 7: the sparse solve of benchmark.py's "sparse_solve" cell (n, RHS
 # columns; a float32 solver at bs 512) and its limit on ||T X - I|| /
 # (||T|| ||X||) over 64 inverted diagonal blocks; the single-step cells:
@@ -259,6 +299,11 @@ STREAM_MIXED_TOL = (1e-4, 1e-6)
 # from the panel's 16,384 animals: the reconstruction is a Python loop an
 # animal (a few ms each at 65,536 SNPs)
 MOBPS_ANIMALS = 1024
+# phase 12: the examples, run as subprocesses at their default sizes, all
+# at once, and the seconds they may take together
+EXAMPLES = ("exact_f64_solves", "gblup_pipeline", "grm_solve_cg",
+            "mixblup_sparse_solve", "ssgblup_pipeline", "full_pipeline")
+EXAMPLE_TIMEOUT = 300
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 and
 # int8 tensor cores, and HBM; a kernel's bound is the larger of ops/peak
@@ -721,6 +766,8 @@ def single_step(dev, sync_time, take_counts, oracle_rows, bed_path, bv):
           f"0.5 or not converged")
     check(corr >= MIN_BV_CORR, f"run_ssgblup: corr(u, BV) {corr:.4f} < "
           f"{MIN_BV_CORR}")
+    cell["run_ssgblup"] = (ped_path, float(min(max(det["h2"], 0.01), 0.99)),
+                           out)
     log(f"phase 7 (sparse solve and single-step) total: "
         f"{time.perf_counter() - t_phase:.3f} s")
     return cell
@@ -1583,6 +1630,372 @@ def facades_phase(dev, sync_time, take_counts, bed_path):
     torch.cuda.empty_cache()
     log(f"phase 11 (facades) total: {time.perf_counter() - t_phase:.3f} s")
 
+
+def cli_phase(dev, sync_time, take_counts, bed_path, resident, cell):
+    """Phase 12: the CLI's 15 subcommands in process on the many_indiv
+    fileset (its .fam carries the phenotypes, its .bim is put on the 4
+    chromosomes of phases 3 and 5), each from the counters' zero with its
+    seconds and launches, exit 0 and no plain version, and each output held
+    to the library call of an earlier phase on the same panel; the six
+    examples as subprocesses at their default sizes, all at once; ``entry``
+    against ``ref_impl.dgemm_oracle`` and ``dryrun_multichip(4)`` on the
+    card.  The subcommands that launch no kernel at many_indiv (``simulate``,
+    ``qc``'s filters, ``pedigree``) and the full LD matrix (65,536^2 is 17
+    GB) run on 600 x 5,000 panels and a 2,000-animal pedigree,
+    ``grm --method yang --pair-denom`` as one call, and ``ssgblup`` without
+    ``--estimate-h2``, at the h2 of phase 7's single-step REML
+    (``cell["run_ssgblup"]``)."""
+    import filecmp
+
+    import numpy as np
+    import torch
+
+    from miraculix_tpu_torch import (_kernels, cli, from_bed, gblup, grm,
+                                     grm_yang, gwas_linear, gwas_logistic,
+                                     gwas_mixed_loco, ld, ld_prune, ld_score,
+                                     load, pedigree, qc)
+    from miraculix_tpu_torch.entry import dryrun_multichip, entry
+    from miraculix_tpu_torch.io import bed, grm_io
+    from miraculix_tpu_torch.ops import ref_impl
+
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(bed_path), "cli")
+    os.makedirs(work)
+
+    def w(name):
+        return os.path.join(work, name)
+
+    def run(name, argv):
+        """``cli.main(["--device", dev, *argv])`` from the counters' zero:
+        exit 0, no plain version; its printed lines, seconds and launches
+        logged; returns what it printed."""
+        _kernels.reset_launch_counts()
+        printed = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(printed):
+                rc, secs = sync_time(lambda: cli.main(
+                    ["--device", str(dev), *argv]))
+        except SystemExit as exc:
+            rc, secs = f"SystemExit({exc.code!r})", float("nan")
+        plain = dict(_kernels.PLAIN_CALLS)
+        for ln in printed.getvalue().splitlines():
+            log(f"  cli {name}: {ln}")
+        counts = take_counts(f"cli {name}")
+        log(f"phase cli {name}: {secs:.3f} s launches="
+            f"{ {k: v for k, v in counts.items() if v} }")
+        check(rc == 0, f"cli {name}: exit {rc}")
+        check(not plain, f"cli {name}: plain versions ran: {plain}")
+        return printed.getvalue(), counts
+
+    def held(name, got, want, tol):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        check(got.shape == want.shape and bool(np.isfinite(got).all()),
+              f"cli {name}: shape {got.shape} against {want.shape} or not "
+              f"finite")
+        r = float(np.abs(got - want).max() / np.abs(want).max())
+        log(f"check cli {name}: rel={r:.3g} (limit {tol:g})")
+        check(r <= tol, f"cli {name}: rel {r:.3g} > {tol:g}")
+
+    def near(name, got, want, tol=1e-3):
+        d = float(np.abs(np.asarray(got) - np.asarray(want)).max())
+        log(f"check cli {name}: {np.round(got, 4)} against {np.round(want, 4)}"
+            f" |diff| {d:.3g} (limit {tol:g})")
+        check(d <= tol, f"cli {name}: |diff| {d:.3g} > {tol:g}")
+
+    def equal(name, ok):
+        log(f"check cli {name}: {ok}")
+        check(ok, f"cli {name}")
+
+    def after(out, key):
+        """The numbers printed after ``key`` on its line."""
+        ln = next(s for s in out.splitlines() if s.startswith(key))
+        return [float(t) for t in ln[len(key):].replace("=", " ").split()
+                if t.lstrip("-").replace(".", "", 1).isdigit()]
+
+    def scan(path):
+        rows = [ln.split("\t") for ln in open(path).read().splitlines()]
+        return rows[0], [r[:3] for r in rows[1:]], np.array(
+            [[float(x) for x in r[3:]] for r in rows[1:]])
+
+    def held_scan(name, path, want):
+        head, ids, got = scan(path)
+        equal(f"{name} variant columns", ids == var_ids)
+        for j, col in enumerate(head[3:]):
+            held(f"{name} {col}", got[:, j], want[col], 1e-4)
+
+    # the fileset: 4 chromosomes in its .bim, the phenotypes of its .fam
+    with open(bed_path[:-4] + ".bim") as fh:
+        bim = [ln.split() for ln in fh if ln.strip()]
+    chrom = np.repeat(np.arange(4), N_SNPS // 4)
+    with open(bed_path[:-4] + ".bim", "w") as fh:
+        fh.writelines("\t".join([str(c + 1)] + r[1:]) + "\n"
+                      for c, r in zip(chrom, bim))
+    var_ids = [[str(c + 1), r[1], r[3]] for c, r in zip(chrom, bim)]
+    snp_ids = [r[1] for r in bim]
+    with open(bed_path[:-4] + ".fam") as fh:
+        fam = [ln.split() for ln in fh if ln.strip()]
+    y = np.array([float(r[5]) for r in fam])
+    gm, _ = sync_time(lambda: from_bed(bed_path, device=dev))
+
+    # -- 12a. info, simulate, validate, ingest -------------------------------
+    small = w("small.bed")
+    bed.write_bed(small, bed.simulate_genotypes(600, 5000, seed=SEED + 1))
+    run("info", ["info"])
+    run("simulate (600 x 5,000)", ["simulate", w("sim.bed"), "--snps", "5000",
+                                   "--indiv", "600", "--seed",
+                                   str(SEED + 1)])
+    equal(".bed of simulate byte-equal to simulate_genotypes + write_bed",
+          filecmp.cmp(w("sim.bed"), small, shallow=False))
+    os.remove(w("sim.bed"))
+    out, _ = run("validate", ["validate"])
+    equal("validate: every line ok", len(out.splitlines()) == 6 and all(
+        ln.endswith(" ok") for ln in out.splitlines()))
+    run("ingest", ["ingest", bed_path, "-o", w("panel.npz")])
+    gl = load(w("panel.npz"), device=dev)
+    equal("ingest: geno.load words and frequencies bit-equal to from_bed's",
+          all(torch.equal(a, b) for a, b in (
+              (gl.zq_n, gm.zq_n), (gl.zq_t, gm.zq_t), (gl.freq, gm.freq),
+              (gl.pseudo_freq, gm.pseudo_freq))))
+    del gl
+    os.remove(w("panel.npz"))
+
+    # -- 12b. grm ------------------------------------------------------------
+    _, counts = run("grm --gcta-out", ["grm", bed_path, "-o", w("grm.npy"),
+                                       "--gcta-out", w("panel")])
+    g_lib = grm(gm).cpu().numpy()
+    g_cli = np.load(w("grm.npy"))
+    held("grm vs grm()", g_cli, g_lib, 1e-6)
+    g2, c2, ids = grm_io.read_gcta_grm(w("panel"))
+    equal("grm --gcta-out read back bit-equal", np.array_equal(
+        g2, g_cli.astype(np.float64)) and bool((c2 == N_SNPS).all())
+        and ids == [(r[0], r[1]) for r in fam])
+    del g2, c2, g_cli
+    check(counts["crossprod"] > 0, "cli grm did not launch K3")
+    gmiss = from_bed(bed_path, keep_missing_info=True, device=dev)
+    for name, flags, want, kernel in (
+            ("grm --method yang --pair-denom", ["--method", "yang",
+                                                "--pair-denom"],
+             lambda: grm_yang(gmiss, pair_denominator=True),
+             "crossprod_weighted"),
+            ("grm --blocked", ["--blocked"], lambda: g_lib,
+             "crossprod_rect")):
+        _, counts = run(name, ["grm", bed_path, "-o", w("g.npy"), *flags])
+        ref = want()
+        held(f"{name} vs the library", np.load(w("g.npy")),
+             ref.cpu().numpy() if isinstance(ref, torch.Tensor) else ref,
+             1e-5)
+        check(counts[kernel] > 0, f"cli {name} did not launch {kernel}")
+    del gmiss, g_lib
+    for f in ("grm.npy", "g.npy", "panel.grm.bin", "panel.grm.N.bin"):
+        os.remove(w(f))
+    torch.cuda.empty_cache()
+
+    # -- 12c. ld -------------------------------------------------------------
+    run("ld --window 512 --score", ["ld", bed_path, "--window",
+                                    str(LD_WINDOW), "--score", "-o",
+                                    w("ldscore.tsv")])
+    held("ld --score vs ld_score()", np.loadtxt(
+        w("ldscore.tsv"), skiprows=1, usecols=1), ld_score(
+            gm, window=LD_WINDOW, chrom=chrom), 1e-5)
+    run("ld --prune-r2 --window 512", ["ld", bed_path, "--prune-r2",
+                                       str(LD_R2), "--window", str(LD_WINDOW),
+                                       "-o", w("prune")])
+    keep = ld_prune(gm, window=LD_WINDOW, r2_threshold=LD_R2, chrom=chrom)
+    kept = open(w("prune") + ".prune.in").read().split()
+    dropped = open(w("prune") + ".prune.out").read().split()
+    equal(f"ld --prune-r2 lists equal to ld_prune()'s ({len(kept)} kept, "
+          f"{len(dropped)} dropped)",
+          kept == [s for s, k in zip(snp_ids, keep) if k]
+          and dropped == [s for s, k in zip(snp_ids, keep) if not k])
+    run("ld (full matrix, 600 x 5,000)", ["ld", small, "-o", w("ld.npy")])
+    held("ld (full) vs ld()", np.load(w("ld.npy")),
+         ld(from_bed(small, device=dev)).cpu().numpy(), 1e-5)
+
+    # -- 12d. qc, pedigree (600 x 5,000; 2,000 animals) ----------------------
+    # a messy 600 x 5,000 panel (missing calls, rare variants), as the
+    # full_pipeline example's, so that the filters drop some
+    bed.write_bed(w("messy.bed"), bed.simulate_genotypes(
+        600, 5000, seed=SEED + 2, missing_rate=0.02, maf_range=(0.005, 0.5)))
+    filters = ["--maf", "0.01", "--geno", "0.05", "--hwe", "1e-6"]
+    run("qc --rel-cutoff (600 x 5,000)", [
+        "qc", w("messy.bed"), "-o", w("qc.bed"), *filters, "--rel-cutoff",
+        "0.125"])
+    keep_s, _ = qc.qc_filter(w("messy.bed"), w("lib.bed"), maf=0.01,
+                             geno=0.05, hwe=1e-6)
+    check(0 < keep_s.sum() < 5000, "qc: the messy panel's filters dropped "
+          "no SNP or every SNP")
+    keep_rel = qc.rel_cutoff(grm(from_bed(w("lib.bed"), device=dev))
+                             .cpu().numpy(), 0.125)
+    rel_ids = [tuple(ln.split()) for ln in open(w("qc.rel.id"))]
+    equal("qc: fileset byte-equal to qc_filter's, --rel-cutoff IDs equal to "
+          "rel_cutoff's", all(filecmp.cmp(w("qc" + ext), w("lib" + ext),
+                                          shallow=False)
+                              for ext in (".bed", ".bim", ".fam"))
+          and rel_ids == [i for i, k in zip(bed.read_fam_ids(w("lib.bed")),
+                                            keep_rel) if k])
+    sire, dam = pedigree.simulate_pedigree(2000, n_founders=80, seed=SEED)
+    with open(w("ped.txt"), "w") as fh:
+        fh.writelines(f"A{i + 1} {f'A{s}' if s else 0} {f'A{d}' if d else 0}"
+                      "\n" for i, (s, d) in enumerate(zip(sire, dam)))
+    run("pedigree (2,000 animals)", ["pedigree", w("ped.txt"), "-o",
+                                     w("f.tsv")])
+    f_cli = {r[0]: float(r[3]) for r in (
+        ln.split("\t") for ln in open(w("f.tsv")).read().splitlines()[1:])}
+    # F printed to 6 decimals
+    near("pedigree F vs inbreeding()", [f_cli[f"A{i + 1}"]
+                                        for i in range(2000)],
+         pedigree.inbreeding(sire, dam), 1e-6)
+
+    # -- 12e. gwas ------------------------------------------------------------
+    def cols(res, *names):
+        return {n: getattr(res, "t" if n == "z" else n) for n in names}
+
+    run("gwas", ["gwas", bed_path, "-o", w("lin.tsv")])
+    held_scan("gwas", w("lin.tsv"), cols(gwas_linear(gm, y), "beta", "se",
+                                         "t", "p"))
+    _, counts = run("gwas --mixed --loco", ["gwas", bed_path, "-o",
+                                            w("loco.tsv"), "--mixed",
+                                            "--loco"])
+    held_scan("gwas --mixed --loco", w("loco.tsv"), cols(gwas_mixed_loco(
+        gm, y, chrom, h2=0.5), "beta", "chi2", "p"))
+    yb = (y > np.median(y)).astype(np.float64)
+    for ext in (".bed", ".bim"):
+        os.symlink(bed_path[:-4] + ext, w("cc" + ext))
+    with open(w("cc.fam"), "w") as fh:
+        fh.writelines(" ".join(r[:5] + [str(int(v))]) + "\n"
+                      for r, v in zip(fam, yb))
+    run("gwas --logistic", ["gwas", w("cc.bed"), "-o", w("cc.tsv"),
+                            "--logistic"])
+    held_scan("gwas --logistic", w("cc.tsv"), cols(gwas_logistic(gm, yb),
+                                                   "beta", "se", "z", "p"))
+    _, _, lin = scan(w("lin.tsv"))
+    lin = dict(zip(("beta", "se", "t", "p"), lin.T))
+    for name, flags in (("gwas --stream-chunk 16384",
+                         ["--stream-chunk", str(STREAM_CHUNK)]),
+                        ("gwas --mesh 4", ["--mesh", "4"])):
+        run(name, ["gwas", bed_path, "-o", w("g.tsv"), *flags])
+        held_scan(f"{name} vs the resident scan", w("g.tsv"), lin)
+
+    # -- 12f. gblup, score, pca -----------------------------------------------
+    run("gblup --estimate-h2 --h2-method reml --effects-out",
+        ["gblup", bed_path, "--estimate-h2", "--h2-method", "reml",
+         "--effects-out", w("eff.tsv")])
+    eff = np.loadtxt(w("eff.tsv"), skiprows=1, usecols=(2, 3))
+    held("gblup effects vs phase 2's run_gblup", eff[:, 0],
+         resident["run_gblup"], 1e-3)
+    run("score", ["score", bed_path, w("eff.tsv"), "-o", w("scores.tsv")])
+    held("score vs predict()", np.loadtxt(w("scores.tsv"), skiprows=1,
+                                          usecols=2),
+         gblup.predict(gm, eff[:, 0], eff[:, 1]), 1e-3)
+    run("pca -k 10", ["pca", bed_path, "-k", "10", "-o", w("pca")])
+    w_lib, _ = gblup.randomized_grm_pca(gm, k=10)
+    vec = np.loadtxt(w("pca.eigenvec"), usecols=range(2, 12))
+    check(vec.shape == (N_INDIV, 10) and bool(np.isfinite(vec).all()),
+          "cli pca: eigenvectors malformed")
+    held("pca eigenvalues vs randomized_grm_pca()", np.loadtxt(
+        w("pca.eigenval")), w_lib / float(gm.sigma2), 1e-5)
+
+    # -- 12g. reml: HE, AI-REML, bivariate, 4 traits --------------------------
+    out, _ = run("reml --method he", ["reml", bed_path, "--method", "he"])
+    near("reml --method he h2 vs phase 2's", after(out, "HE h2")[0],
+         resident["estimate_h2_he"])
+    out, _ = run("reml", ["reml", bed_path])
+    near("reml h2 vs phase 2's", after(out, "V(G)/Vp")[0],
+         resident["estimate_h2_reml"])
+    ys4 = resident["ys4"]
+    with open(w("t2.txt"), "w") as fh:
+        fh.writelines(f"{r[0]} {r[1]} {v:.9g}\n" for r, v in zip(fam,
+                                                                 ys4[:, 1]))
+    # the library's default of 8 probes, which phase 2 ran
+    out, _ = run("reml --bivar", ["reml", bed_path, "--bivar", w("t2.txt"),
+                                  "--probes", "8"])
+    near("reml --bivar rG, h2 vs phase 2's",
+         [after(out, k)[0] for k in ("rG", "h2 (trait 1)", "h2 (trait 2)")],
+         resident["estimate_bivar_reml"])
+    with open(w("multi.txt"), "w") as fh:
+        fh.write("FID IID y1 y2 y3 y4\n")
+        fh.writelines(f"{r[0]} {r[1]} " + " ".join(f"{v:.9g}" for v in row)
+                      + "\n" for r, row in zip(fam, ys4))
+    out, counts = run("reml --multi (4 traits)", ["reml", bed_path, "--multi",
+                                                  w("multi.txt"), "--probes",
+                                                  "8"])
+    near("reml --multi h2 vs phase 2's", [after(out, f"{k + 1}\t")[0]
+                                          for k in range(4)],
+         resident["estimate_multi_reml t=4"])
+    check(counts["wide_dgemm_split"] > 0,
+          "cli reml --multi did not launch the wide split kernel")
+
+    # -- 12h. ssgblup, bench --------------------------------------------------
+    # phase 7's run_ssgblup on its 32,768-animal pedigree, at the h2 its
+    # single-step REML found
+    ped, h2_ss, ebv_lib = cell["run_ssgblup"]
+    run("ssgblup", ["ssgblup", bed_path, "--pedigree", ped, "-o",
+                    w("ebv.tsv"), "--no-inbreeding", "--h2", repr(h2_ss)])
+    rows = [ln.split("\t") for ln in open(w("ebv.tsv")).read().splitlines()]
+    rows_lib = [ln.split("\t") for ln in open(ebv_lib).read().splitlines()]
+    equal("ssgblup animals and genotyped flags equal to phase 7's "
+          "run_ssgblup", len(rows) == 1 + SS_PIPELINE and
+          [(r[0], r[2]) for r in rows] == [(r[0], r[2]) for r in rows_lib])
+    held("ssgblup EBVs vs phase 7's run_ssgblup", [float(r[1]) for r in
+                                                   rows[1:]],
+         [float(r[1]) for r in rows_lib[1:]], 1e-3)
+    out, counts = run("bench --grm", ["bench", "--grm"])
+    equal("bench printed its two lines", [ln.split()[0] for ln in
+                                          out.splitlines()[:2]]
+          == ["dgemm:", "GRM:"])
+    check(counts["crossprod"] > 0, "cli bench --grm did not launch K3")
+
+    # -- 12i. the entry and the dry run on the card ---------------------------
+    _kernels.reset_launch_counts()
+    (fn, args), _ = sync_time(entry)
+    got, secs = sync_time(lambda: fn(*args))
+    plain = dict(_kernels.PLAIN_CALLS)
+    g512 = bed.simulate_genotypes(512, 4096, seed=0)
+    want = ref_impl.dgemm_oracle(g512, args[1].astype(np.float64),
+                                 args[0].freq.cpu().numpy())
+    take_counts("entry")
+    check(got.device.type == "cuda", "entry() did not run on the card")
+    check(not plain, f"entry(): plain versions ran: {plain}")
+    held(f"entry() ({secs:.3f} s) vs dgemm_oracle", got.cpu().numpy(), want,
+         1e-5)
+    _kernels.reset_launch_counts()
+    _, secs = sync_time(lambda: dryrun_multichip(4))
+    plain = dict(_kernels.PLAIN_CALLS)
+    counts = take_counts("dryrun_multichip(4)")
+    log(f"phase dryrun_multichip(4), 4 shards on the card: {secs:.3f} s "
+        f"launches={ {k: v for k, v in counts.items() if v} }")
+    check(not plain, f"dryrun_multichip: plain versions ran: {plain}")
+    del gm
+    torch.cuda.empty_cache()
+
+    # -- 12j. the examples, as subprocesses at their default sizes ------------
+    # all six at once: one wall time for the six (each contends with the
+    # others for the card and the host)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"miraculix_tpu_torch.examples.{name}"],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in EXAMPLES}
+    outs = {}
+    for name, proc in procs.items():
+        try:
+            outs[name] = proc.communicate(timeout=max(
+                1.0, t0 + EXAMPLE_TIMEOUT - time.perf_counter()))[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            outs[name] = proc.communicate()[0] + "\n(timed out)"
+    log(f"phase examples (six subprocesses at once): "
+        f"{time.perf_counter() - t0:.3f} s")
+    for name, proc in procs.items():
+        for ln in outs[name].splitlines():
+            log(f"  example {name}: {ln}")
+        log(f"check example {name}: exit {proc.returncode}")
+        check(proc.returncode == 0, f"example {name}: exit {proc.returncode}")
+    log(f"phase 12 (cli, examples, entry) total: "
+        f"{time.perf_counter() - t_phase:.3f} s")
+
+
 def small_single_step(dev, small, seed):
     """Phase 8's single-step part: the sparse solver (n = 5,000, bs 300:
     lower and upper, 'n' and 't', float32 and float64, ``solve_lltx`` with a
@@ -2379,6 +2792,7 @@ def main() -> int:
         f" corr(bv, bv2) = {np.corrcoef(bv, bv2)[0, 1]:.6f}")
     _kernels.reset_launch_counts()
     h2_he, _ = counted("estimate_h2_he", lambda: gblup.estimate_h2_he(gm, y))
+    resident["estimate_h2_he"] = h2_he
     log(f"  estimate_h2_he: h2={h2_he:.4f}")
     check(np.isfinite(h2_he) and abs(h2_he - 0.5) <= HE_TOL,
           f"estimate_h2_he: h2 {h2_he:.4f} not within {HE_TOL} of 0.5")
@@ -2409,6 +2823,7 @@ def main() -> int:
         f"{db['h2_1']:.4f} / {db['h2_2']:.4f} AI steps {db['iterations']} "
         f"cg_iterations={db['cg_iterations']} converged={db['converged']}")
     check(db["converged"], "estimate_bivar_reml did not converge")
+    resident["estimate_bivar_reml"] = (rg, db["h2_1"], db["h2_2"])
     check(abs(db["h2_1"] - 0.5) <= REML_TOL
           and abs(db["h2_2"] - 0.5) <= REML_TOL,
           f"estimate_bivar_reml: h2 {db['h2_1']:.4f} / {db['h2_2']:.4f} not "
@@ -3027,6 +3442,9 @@ def main() -> int:
 
     # -- 11. the user surface: C API, R API, MoBPS, QC, GRM files, counted --
     facades_phase(dev, sync_time, take_counts, bed_path)
+
+    # -- 12. the CLI, the examples and the entry, counted ----------------------
+    cli_phase(dev, sync_time, take_counts, bed_path, resident, cell)
     fileset.cleanup()
     missing = [k for k in SOURCES if launches[k] == 0]
     check(not missing, f"never launched on a main path: {missing}")

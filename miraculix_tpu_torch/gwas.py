@@ -42,6 +42,11 @@ from .solve.cg import cg, grm_cg_solve, grm_diag, grm_matvec, jacobi_minv
 from .streamed import StreamedGeno
 
 
+# the least share of sigma2 that the SNPs off one chromosome must carry for
+# its LOCO fold (float32 sums of 2pq over a panel agree to ~1e-6)
+LOCO_MIN_SHARE = 1e-4
+
+
 class GWASResult(NamedTuple):
     beta: np.ndarray      # [snps] per-SNP effect estimates
     se: np.ndarray        # [snps] standard errors
@@ -388,7 +393,9 @@ def gwas_mixed_loco(g, y: np.ndarray, chrom: np.ndarray,
         idx = np.flatnonzero(chrom == c)
         solve, u_of = fold(idx)
         s2_loco = sigma2 - float(2.0 * np.sum(freq[idx] * (1.0 - freq[idx])))
-        if s2_loco <= 0:
+        # sigma2 is a float32 sum: a chromosome that holds every SNP leaves
+        # rounding noise of either sign, never a GRM to scale by
+        if s2_loco <= LOCO_MIN_SHARE * sigma2:
             raise ValueError(f"chromosome {c!r} carries the whole panel")
         k = min(n_gamma_snps, len(idx))
         sample_local = np.sort(rng.choice(len(idx), size=k, replace=False))

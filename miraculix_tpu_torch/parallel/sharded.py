@@ -100,6 +100,14 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "k", *,
     return Mesh((axis,), (len(devices) * world,), devices, grp)
 
 
+def mesh_on(n: int, device: torch.device):
+    """A 1D mesh of n shards: on the cards (round-robin over the visible
+    ones), or n CPU shards when ``device`` is the CPU."""
+    if device.type == "cpu":
+        return make_mesh(devices=["cpu"] * n)
+    return make_mesh(n)
+
+
 @dataclasses.dataclass(eq=False)
 class RowSharded:
     """A result row-sharded along a mesh axis: ``blocks[j]`` is local shard

@@ -4,7 +4,7 @@ miraculix_tpu's on the same inputs.
 Counts, masks and p-values must be equal, and every file the port writes
 (``qc_filter``'s fileset, ``vcf_to_bed``'s, ``write_gcta_grm``'s) byte-equal
 to the one the reference writes.  The CLI cases of the reference's
-test_qc.py, test_vcf.py and test_grm_io.py wait for the port's CLI.
+test_qc.py, test_vcf.py and test_grm_io.py are in test_torch_cli_io.py.
 """
 import gzip
 import os
