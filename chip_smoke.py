@@ -17,7 +17,7 @@ codec of ``miraculix_tpu_torch/io/native`` and
    panel (65,536 SNPs x 16,384 animals), 'n' and 't', at the shapes the
    main paths launch: the tall dgemm kernel in its split mode with and
    without the fused center vector (1, 4, 6, 12, 18, 32, 33 and 64 columns)
-   and in its bf16 and f32 modes (1, 32 and 128 columns; max error <= 1e-5
+   and in its bf16 and f32 modes (1, 8, 32 and 128 columns; max error <= 1e-5
    of max |plain|; the f32 mode on a B whose third bf16 parts add up, with
    the split grade as a second control), its time split by kernel, the tall
    and wide kernels timed side by side at the bf16 and f32 tiers' 65 and
@@ -191,7 +191,23 @@ codec of ``miraculix_tpu_torch/io/native`` and
    ``ref_impl.dgemm_oracle`` (1e-5) and ``dryrun_multichip(4)`` with its
    shards on the one card, neither running a plain version; then the six
    examples as subprocesses at their default sizes, all at once (exit 0,
-   one wall time for the six).
+   one wall time for the six);
+13. runs the benchmark suite in process (``benchmark.main([..., "--device",
+   "cuda:0"])``, one (suite, panel) a run, each from the counters' zero,
+   every row printed with its seconds, launches and peak device memory) at
+   the reference's sizes: ``dgemm`` and ``grm`` on xsmall, small and
+   many_indiv with the f32 ``torch.matmul`` comparator, ``grm`` on the
+   1,048,576-SNP x 21,248-animal ref panel (words hashed on the card; rows
+   0-255 of the timed product exactly equal to the plain product of the
+   same words), ``ld`` on xsmall, ``dgemm_exact`` (8 columns) and
+   ``solve_refined`` on small, ``gwas`` on medium, ``sparse_solve``,
+   ``ssgblup``, ``gblup_fullscale`` (1,048,576 x 100,096 in 16 regenerated
+   chunks), ``ld_banded`` (1,048,576 x 512) and ``scaling`` (one card):
+   no plain version, no share above the detected card's peak, every
+   number finite, the sparse residuals (< 1e-4; f64 grade <= 1e-12), the
+   refined solve's float64 residual (<= 1e-10), the full-scale CG
+   converged within 60 iterations, single-step under 500; then the chunk
+   generator's ms a chunk.
 
 Cuts from the reference's own runs: phase 7's ``run_ssgblup`` pedigree has
 32,768 animals (65,536 took the phase 70 s); phase 11 reconstructs 1,024
@@ -204,6 +220,9 @@ full size) on 600 x 5,000 panels and a 2,000-animal pedigree,
 its missing coordinates, ~12 s; the VanRaden ``--pair-denom`` path runs in
 the CPU tests) and ``ssgblup`` without ``--estimate-h2`` (phase 7 runs the
 single-step REML).
+
+Kernel bounds and the suite's shares use the detected card's dense peaks
+(``benchmark.device_peaks``), printed beside its name and power limit.
 
 Earlier lines report the compiler's registers and spills (and, for the
 integer, wide and weighted kernels, their shared memory and resident blocks
@@ -269,7 +288,8 @@ LD_BLOCK = 4096               # ld_windowed's row block: [4096, 4608] products
 # tests/dgemm_compressed/test.jl width); its sparse products at 32 rows
 # take f32 32.  Phase 12 adds 3 (the CLI's gwas --logistic, no covariates:
 # the score pass [y - mu | w | w x] with x the intercept) and 5
-# (dryrun_multichip's LOCO CG: 4 sampled SNPs beside y)
+# (dryrun_multichip's LOCO CG: 4 sampled SNPs beside y).  Phase 13 adds
+# f32 8 (the suite's dgemm_exact beside its exact tier)
 TALL_NCOLS = (32, 1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 16, 18, 21, 22, 33, 52,
               64, 128)
 # phase 7: the sparse solve of benchmark.py's "sparse_solve" cell (n, RHS
@@ -304,12 +324,24 @@ MOBPS_ANIMALS = 1024
 EXAMPLES = ("exact_f64_solves", "gblup_pipeline", "grm_solve_cg",
             "mixblup_sparse_solve", "ssgblup_pipeline", "full_pipeline")
 EXAMPLE_TIMEOUT = 300
-
-# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 and
-# int8 tensor cores, and HBM; a kernel's bound is the larger of ops/peak
-# and bytes/rate.
-PEAK = {"bf16": 989e12, "int8": 1979e12}
-HBM_RATE = 3.35e12
+# phase 13: the benchmark suite through benchmark.main, one (suite, panel) a
+# run, at the reference's sizes and defaults; dgemm_exact at its cell's own
+# 8 columns (main's --ncol default is 32); the limits its rows are held to
+SUITE_RUNS = (
+    *(["--suite", s, "--panels", p, "--comparator"] for s in ("dgemm", "grm")
+      for p in ("xsmall", "small", "many_indiv")),
+    ["--suite", "grm", "--panels", "ref_many_snps"],
+    ["--suite", "ld", "--panels", "xsmall"],
+    ["--suite", "dgemm_exact", "--panels", "small", "--ncol", "8"],
+    ["--suite", "solve_refined", "--panels", "small"],
+    ["--suite", "gwas", "--panels", "medium"],
+    ["--suite", "sparse_solve"], ["--suite", "ssgblup"],
+    ["--suite", "gblup_fullscale"], ["--suite", "ld_banded"],
+    ["--suite", "scaling"])
+SUITE_SPARSE_RESID, SUITE_SPARSE_F64 = 1e-4, 1e-12
+SUITE_REFINED_RESID = 1e-10
+SUITE_CG_MAX, SUITE_SS_MAX = 60, 500
+SUITE_EXACT_ROWS = 256   # the ref panel's block held to the plain product
 
 SOURCES = {  # kernel -> (source, TPU kernel it replaces)
     "tall_dgemm": ("miraculix_tpu_torch/csrc/tall_dgemm.cu",
@@ -369,10 +401,15 @@ def log(msg: str) -> None:
 
 def bound(name: str, macs: float, nbytes: float) -> tuple[float, str]:
     """(least ms the card could take, what bounds it) for ``macs``
-    multiply-adds and ``nbytes`` moved once."""
+    multiply-adds and ``nbytes`` moved once: the larger of operations over
+    the unit's peak and bytes over the HBM rate, the detected card's dense
+    peaks (``benchmark.device_peaks``)."""
+    from miraculix_tpu_torch.benchmark import device_peaks
+
+    peaks = device_peaks("cuda")
     unit, passes = UNIT[name]
-    t_ops = 2.0 * macs * passes / PEAK[unit]
-    t_bytes = nbytes / HBM_RATE
+    t_ops = 2.0 * macs * passes / peaks[unit]
+    t_bytes = nbytes / peaks["hbm"]
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -1996,6 +2033,139 @@ def cli_phase(dev, sync_time, take_counts, bed_path, resident, cell):
         f"{time.perf_counter() - t_phase:.3f} s")
 
 
+def suite_phase(dev, take_counts, event_ms):
+    """Phase 13: ``benchmark.main`` in process for every run of
+    ``SUITE_RUNS`` (stdout captured, each row parsed), from the counters'
+    zero: each row printed with its seconds, launches and peak device
+    memory; no plain version, no ``roofline_warning``, every utilization
+    share a number <= 1.0 and every number finite; the sparse solve's
+    residuals, the refined solve's float64 residual, the full-scale CG's
+    convergence and the single-step solve's iterations within their
+    limits; rows 0-255 of the ref panel's timed product exactly equal to
+    the plain product of the same words; then the full-scale chunk
+    generator's ms a chunk, and the full-scale cell's 1-column wide product
+    on one generated chunk held to its plain version."""
+    import math
+
+    import torch
+
+    from miraculix_tpu_torch import _kernels, benchmark
+    from miraculix_tpu_torch.ops import dgemm as dgemm_ops
+    from miraculix_tpu_torch.ops import grm as grm_ops
+
+    t_phase = time.perf_counter()
+    timed = grm_ops.packed_crossprod
+    seen = {}
+
+    def spy(zq, *args, **kwargs):
+        """The production call; keeps the ref panel's words and product."""
+        out = timed(zq, *args, **kwargs)
+        if zq.shape[0] == benchmark.REF_PANEL["rows_pad"]:
+            seen["zq"], seen["out"] = zq, out
+        return out
+
+    torch.cuda.empty_cache()
+    for argv in SUITE_RUNS:
+        name = " ".join(a for a in argv[1:] if not a.startswith("--"))
+        _kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        printed = io.StringIO()
+        grm_ops.packed_crossprod = spy
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(printed):
+                rc = benchmark.main([*argv, "--device", str(dev)])
+        finally:
+            grm_ops.packed_crossprod = timed
+        secs = time.perf_counter() - t0
+        plain = dict(_kernels.PLAIN_CALLS)
+        counts = take_counts(f"suite {name}")
+        rows = [json.loads(ln) for ln in printed.getvalue().splitlines()]
+        for row in rows:
+            log(f"  suite {name}: {json.dumps(row)}")
+        log(f"phase suite {name}: {secs:.3f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+            f"launches={ {k: v for k, v in counts.items() if v} }")
+        check(rc == 0 and len(rows) == 1, f"suite {name}: exit {rc}, "
+              f"{len(rows)} rows")
+        check(not plain, f"suite {name}: plain versions ran: {plain}")
+        row = rows[0]
+        check(row["suite"] == argv[1], f"suite {name}: row of {row['suite']}")
+        shares = {k: v for k, v in row.items() if "utilization" in k}
+        check("roofline_warning" not in row and all(
+            v is not None and v <= 1.0 for v in shares.values()),
+              f"suite {name}: a share above the card's peak: {shares}")
+        check(all(math.isfinite(v) for v in row.values()
+                  if isinstance(v, float)),
+              f"suite {name}: a number is not finite")
+        if row["suite"] == "sparse_solve":
+            check(row["rel_residual"] < SUITE_SPARSE_RESID
+                  and row["f64_grade_rel_residual"] <= SUITE_SPARSE_F64,
+                  f"suite {name}: residuals {row['rel_residual']:.3g}, "
+                  f"{row['f64_grade_rel_residual']:.3g}")
+        elif row["suite"] == "solve_refined":
+            check(row["true_f64_rel_residual"] <= SUITE_REFINED_RESID,
+                  f"suite {name}: float64 residual "
+                  f"{row['true_f64_rel_residual']:.3g}")
+        elif row["suite"] == "gblup_fullscale":
+            check(row["converged"] and row["cg_iterations"] <= SUITE_CG_MAX,
+                  f"suite {name}: converged {row['converged']} in "
+                  f"{row['cg_iterations']} iterations")
+        elif row["suite"] == "ssgblup":
+            check(row["outer_cg_iterations"] < SUITE_SS_MAX,
+                  f"suite {name}: {row['outer_cg_iterations']} iterations")
+        elif row.get("panel") == "ref_many_snps":
+            check("zq" in seen, "the ref panel's product was not taken")
+            zq, out = seen.pop("zq"), seen.pop("out")
+            k = SUITE_EXACT_ROWS
+            want = grm_ops.packed_crossprod_plain(zq[:k])
+            ok = torch.equal(out[:k, :k], want)
+            log(f"check suite {name}: rows 0-{k - 1} of the timed product "
+                f"vs the plain product of the same {zq.shape[1]} words a "
+                f"row: equal={ok}")
+            check(ok, "the ref panel's timed product disagrees with plain")
+            del zq, out, want
+        torch.cuda.empty_cache()
+
+    # the full-scale cell's word generator (plain torch), one chunk
+    cfg = dict(indiv=100_096, kw_chunk=4096)
+    ms = event_ms(lambda: benchmark.hash_chunk_words(
+        0, cfg["indiv"], cfg["kw_chunk"], dev), 3)
+    nbytes = cfg["indiv"] * cfg["kw_chunk"] * 4
+    log(f"time hash_chunk_words (gblup_fullscale's chunk, {cfg['indiv']} x "
+        f"{cfg['kw_chunk']} words): {ms:.3f} ms a chunk, "
+        f"{nbytes / ms / 1e6:.1f} GB/s of words written")
+
+    # the cell's 'n' pass at its own shape (1 column on one chunk's words)
+    # against the plain product of the same words, under phase 1's wide
+    # metric: |kernel - plain| over each output's sum of |terms|, with the
+    # bf16 grade as the control that must read above the limit
+    zq = benchmark.hash_chunk_words(0, cfg["indiv"], cfg["kw_chunk"], dev)
+    u = torch.randn((16 * cfg["kw_chunk"], 1), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    got = dgemm_ops.packed_matmul(zq, u)
+    want = dgemm_ops.packed_matmul_plain(zq, u)
+    scale = dgemm_ops.packed_matmul_plain(zq, u.abs())
+    control = dgemm_ops.packed_matmul_plain(zq, u, single_bf16=True)
+
+    def wide_rel(x):
+        diff = (x - want).abs()
+        zero = torch.zeros((), device=diff.device)
+        return float(torch.where(scale > 0, diff / scale, torch.where(
+            diff > 0, torch.inf, zero)).max())
+    rel, crel = wide_rel(got), wide_rel(control)
+    log(f"check suite gblup_fullscale chunk: packed_matmul "
+        f"{tuple(zq.shape)} words x 1 column vs plain: max_abs_err="
+        f"{float((got - want).abs().max()):.6g} rel={rel:.3g} (limit "
+        f"{WIDE_RTOL:g}; bf16 control {crel:.3g})")
+    check(bool(torch.isfinite(got).all()) and rel <= WIDE_RTOL < crel,
+          "the full-scale chunk's 1-column product disagrees with plain")
+    del zq, u, got, want, scale, control
+    _kernels.reset_launch_counts()   # the check's launches count nowhere
+    torch.cuda.empty_cache()
+    log(f"phase 13 (suite) total: {time.perf_counter() - t_phase:.3f} s")
+
+
 def small_single_step(dev, small, seed):
     """Phase 8's single-step part: the sparse solver (n = 5,000, bs 300:
     lower and upper, 'n' and 't', float32 and float64, ``solve_lltx`` with a
@@ -2073,6 +2243,7 @@ def main() -> int:
     import numpy as np
 
     from miraculix_tpu_torch import _kernels, gblup
+    from miraculix_tpu_torch.benchmark import device_peaks
     from miraculix_tpu_torch import (dgemm, dominance_grm, from_bed,
                                      from_dense, grm, grm_blocked,
                                      grm_cg_solve, grm_diag, grm_matvec_f64,
@@ -2109,6 +2280,11 @@ def main() -> int:
     check(smi.returncode == 0 and bool(smi.stdout.strip()),
           "nvidia-smi did not report the card")
     log(smi.stdout.strip().splitlines()[0])   # name, power limit
+    peaks = device_peaks(dev)
+    log(f"peaks used for the bounds and shares (dense, "
+        f"{torch.cuda.get_device_name(0)}): bf16 {peaks['bf16'] / 1e12:g} "
+        f"TFLOP/s, int8 {peaks['int8'] / 1e12:g} TOP/s, HBM "
+        f"{peaks['hbm'] / 1e12:g} TB/s")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
@@ -2278,7 +2454,7 @@ def main() -> int:
                     cases += [("tall_dgemm_cv", "centered", cvs[trans],
                                "split"),
                               ("tall_dgemm", "uncentered", None, "split")]
-                if ncol in (1, 128) and trans == "n" or ncol == 32:
+                if ncol in (1, 8, 128) and trans == "n" or ncol == 32:
                     cases += [("tall_dgemm_bf16", "", None, "bf16"),
                               ("tall_dgemm_f32", "", None, "f32")]
                 if ncol == 32 and trans == "n":   # checked, not timed
@@ -2393,6 +2569,8 @@ def main() -> int:
             ("wide_dgemm_bf16", "n", 130, dict(single_bf16=True)),
             ("wide_dgemm_bf16", "n", 65, dict(single_bf16=True)),
             ("wide_dgemm_hilo", "n", 32, dict()),
+            # the full-scale GBLUP cell's 'n' pass (phase 13): one column
+            ("wide_dgemm_hilo", "n", 1, dict()),
             ("wide_dgemm_split", "t", 65, dict()),
             # the 4-trait REML's AI block, t t (t + 1) = 80 columns
             ("wide_dgemm_split", "n", 80, dict()),
@@ -3446,6 +3624,9 @@ def main() -> int:
     # -- 12. the CLI, the examples and the entry, counted ----------------------
     cli_phase(dev, sync_time, take_counts, bed_path, resident, cell)
     fileset.cleanup()
+
+    # -- 13. the benchmark suite at the reference's sizes, counted -----------
+    suite_phase(dev, take_counts, event_ms)
     missing = [k for k in SOURCES if launches[k] == 0]
     check(not missing, f"never launched on a main path: {missing}")
     log("tall launches on the main paths by (mode, n): "

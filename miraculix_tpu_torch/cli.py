@@ -23,14 +23,14 @@ The subcommands, flags, defaults, printed lines, output files and exit
 messages are the reference's.  One option is the port's own: ``--device``
 (default ``cuda``), given before the subcommand, is where the panels go and
 compute; on a host with no CUDA device the CLI exits unless it is given
-``--device cpu``.  ``bench`` times its two products with CUDA events (a host
-clock on the CPU) after a warm-up call: the median of a few repeats.
+``--device cpu``.  ``bench`` times its two products with the benchmark suite's
+timers: CUDA events (a host clock on the CPU), the median of interleaved
+differences between runs of one call and of ``iters + 1`` calls.
 """
 from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 import numpy as np
 import torch
@@ -117,32 +117,12 @@ def cmd_validate(args) -> int:
     return 1 if failures else 0
 
 
-def _median_seconds(fn, device: torch.device, repeats: int) -> float:
-    """Median seconds of ``fn()`` over ``repeats`` calls after a warm-up
-    call (which builds and loads the kernel): CUDA events around each call
-    on the card, the host clock elsewhere."""
-    fn()
-    times = []
-    for _ in range(repeats):
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / 1e3)
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-    return float(np.median(times))
-
-
 def cmd_bench(args) -> int:
     """Time the core ops (benchmark.f90 / main.cc timing loops): the packed
     dgemm at ``--ncol`` columns and, with ``--grm``, the integer GRM
-    crossproduct."""
+    crossproduct, through the suite's differenced timers
+    (``benchmark._timed_scan_b`` / ``_timed_scan_zq``)."""
+    from .benchmark import _timed_scan_b, _timed_scan_zq
     from .io import bed, codec
     from .ops.dgemm import packed_matmul
     from .ops.grm import packed_crossprod
@@ -162,12 +142,12 @@ def cmd_bench(args) -> int:
     b = torch.as_tensor(rng.standard_normal((args.snps, args.ncol)),
                         dtype=torch.float32, device=dev)
 
-    per = _median_seconds(lambda: packed_matmul(zqd, b), dev, repeats=8)
+    per = _timed_scan_b(lambda z, bb: packed_matmul(z, bb), zqd, b, iters=8)
     ops = args.snps * args.indiv * args.ncol / per
     print(f"dgemm:  {per * 1e3:8.2f} ms  {ops / 1e12:6.2f} T geno-col-ops/s")
 
     if args.grm:
-        per = _median_seconds(lambda: packed_crossprod(zqd), dev, repeats=3)
+        per = _timed_scan_zq(lambda z: packed_crossprod(z), zqd, iters=2)
         flops = 2.0 * args.indiv ** 2 * args.snps
         print(f"GRM:    {per * 1e3:8.2f} ms  {flops / per / 1e12:6.1f} TFLOP/s")
     print(t.report())

@@ -4,6 +4,7 @@ Same panels through both packages must give the same planar16 words (bit
 for bit), the same freq / pseudo_freq, the same missing lists and the same
 simulated draws; checkpoints written by one load in the other.
 """
+import json
 import os
 import subprocess
 import sys
@@ -223,15 +224,32 @@ FACADES = ["api.plink2compressed", "api.dgemm_plink",
            "api.sparse_times_plink", "rapi.geno_vector", "rapi.vector_geno",
            "rapi.crossprod", "rapi.crossprod_int", "rapi.vector_rel_matrix",
            "mobps.compute_relationship"]
+# the benchmark suite's cells at toy sizes ("toy" added to its PANELS)
+BENCH_CELLS = {
+    "benchmark.bench_dgemm": ("toy", 8, 2),
+    "benchmark.bench_dgemm_exact": ("toy", 4, 1),
+    "benchmark.bench_solve_refined": ("toy", 1),
+    "benchmark.bench_gwas": ("toy", 1),
+    "benchmark.bench_grm": ("toy", 2),
+    "benchmark.bench_grm_ref_panel": (2,),
+    "benchmark.bench_ld": ("toy", 2),
+    "benchmark.bench_sparse_solve": (300, 9, 2, 2),
+    "benchmark.bench_ssgblup": (300, 64, 512, 1),
+    "benchmark.bench_gblup_fullscale": (1024, 256, 2),
+    "benchmark.bench_scaling": (1, 512, 256, 2),
+    "benchmark.bench_ld_banded": (1024, 64, 32, 1),
+}
 
 
 @pytest.mark.parametrize("entry", ["from_dense", "from_bed", "from_plink",
-                                   "load", "from_reference_state"] + FACADES)
+                                   "load", "from_reference_state"] + FACADES
+                         + list(BENCH_CELLS))
 def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
     """With no device named, a panel goes to the CUDA card; where there is
     none that raises, and nothing falls back to the CPU.  The C API, the R
-    API and the MoBPS bridge build their panels the same way."""
-    from miraculix_tpu_torch import api, mobps, rapi
+    API and the MoBPS bridge build their panels the same way, and each
+    benchmark cell resolves its device before it simulates anything."""
+    from miraculix_tpu_torch import api, benchmark, mobps, rapi
     from miraculix_tpu_torch.formats import Coding, CodedMatrix, encode
     from miraculix_tpu_torch.utils import panel_cache
 
@@ -259,14 +277,20 @@ def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
             "rapi.crossprod": (m,), "rapi.crossprod_int": (m,),
             "rapi.vector_rel_matrix": (m, np.ones(12)),
             "mobps.compute_relationship": (pop, [1, 1], [1, 1], [1, 2]),
-            }[entry]
+            **BENCH_CELLS}[entry]
     mod, _, name = entry.rpartition(".")
-    fn = getattr({"": mt, "api": api, "rapi": rapi, "mobps": mobps}[mod],
-                 name)
+    fn = getattr({"": mt, "api": api, "rapi": rapi, "mobps": mobps,
+                  "benchmark": benchmark}[mod], name)
+    monkeypatch.setitem(benchmark.PANELS, "toy", dict(snps=1024, indiv=256))
+    monkeypatch.setattr(benchmark, "REF_PANEL",
+                        dict(rows=200, rows_pad=256, kw=128, chunk=64))
     panel_cache.clear()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn(*args)
     out = fn(*args, device=CPU)
     panel_cache.clear()
-    assert isinstance(out, np.ndarray) or out.device.type == "cpu"
+    if mod == "benchmark":   # a row of the suite, timed on the CPU
+        assert out["suite"] in name and json.dumps(out)
+    else:
+        assert isinstance(out, np.ndarray) or out.device.type == "cpu"
