@@ -1,0 +1,9 @@
+"""The device's idle share of the traced window: 100 x (1 - the union of
+the device operations' intervals / the window), from the profiler's
+trace."""
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s() / run.trace.window_s())
