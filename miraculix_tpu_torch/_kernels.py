@@ -7,7 +7,10 @@ flags>/``, and ``ctypes`` loads it.  Nothing is built or loaded at import, so
 the package imports (and its CPU paths run) where there is no CUDA toolkit.
 
 Each launcher checks its tensors, launches on the current stream, adds one
-to its entry of :data:`LAUNCHES`, and raises if the launch failed.
+to its entry of :data:`LAUNCHES`, and raises if the launch failed; its
+call is a span (``utils.logging.span``, recorded while a profile does)
+named by that entry, with the packed words' shape (``zq``), B's or the
+weights' (``b``) and the mode.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from .utils.logging import span
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -215,46 +220,48 @@ def tall_dgemm(zq: torch.Tensor, b: torch.Tensor, cv=None, mode="split"):
     [contract] (split mode only).  ``mode``: "split" (B's bf16 hi + lo),
     "bf16" (hi), "f32" (hi + mid + lo): one bf16 tensor-core pass per part.
     The bf16 parts and the cv partials go through scratch allocated here."""
-    lib = _load()
-    _check(zq, "zq", torch.int32, 2)
-    _check(b, "b", torch.float32, 2)
-    spad, kwi = zq.shape
-    contract, n = b.shape
-    if mode not in TALL_PASSES:
-        raise ValueError(f"mode must be split/bf16/f32, got {mode!r}")
-    if contract > spad or n < 1 or b.device != zq.device:
-        raise ValueError(f"tall_dgemm: b {tuple(b.shape)} does not fit zq "
-                         f"{tuple(zq.shape)}")
-    if cv is not None and mode != "split":
-        raise ValueError("center_vec fusion is a split-mode feature")
-    if cv is not None:
-        _check(cv, "cv", torch.float32, 1)
-        if cv.shape[0] != contract:
-            raise ValueError("cv must have one entry per contraction row")
-    dev = zq.device
-    passes = TALL_PASSES[mode]
-    splits = tall_splits(kwi, contract, n, passes, dev)
-    ct = torch.empty((n, 16 * kwi), dtype=torch.float32, device=dev)
-    parts = torch.empty(lib.mx_tall_parts_bytes(contract, n, passes),
-                        dtype=torch.uint8, device=dev)
-    v = vwork = work = None
-    if cv is not None:
-        v = torch.empty(n, dtype=torch.float32, device=dev)
-        vwork = torch.empty((lib.mx_tall_vrows(contract), n),
-                            dtype=torch.float32, device=dev)
-    if splits > 1:
-        work = torch.empty((splits, n, 16 * kwi), dtype=torch.float32,
-                           device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     name = "tall_dgemm_cv" if cv is not None else \
         "tall_dgemm" if mode == "split" else f"tall_dgemm_{mode}"
-    LAUNCHES[name] += 1
-    TALL_WIDTHS[(mode, n)] += 1
-    _raise_if(lib.mx_tall_dgemm(_ptr(zq), kwi, _ptr(b), contract, n, _ptr(cv),
-                                _ptr(ct), _ptr(v), _ptr(work), _ptr(vwork),
-                                _ptr(parts), splits, passes,
-                                ctypes.c_void_p(stream)), name)
-    return ct, v
+    with span(name, zq=zq, b=b, mode=mode):
+        lib = _load()
+        _check(zq, "zq", torch.int32, 2)
+        _check(b, "b", torch.float32, 2)
+        spad, kwi = zq.shape
+        contract, n = b.shape
+        if mode not in TALL_PASSES:
+            raise ValueError(f"mode must be split/bf16/f32, got {mode!r}")
+        if contract > spad or n < 1 or b.device != zq.device:
+            raise ValueError(f"tall_dgemm: b {tuple(b.shape)} does not fit "
+                             f"zq {tuple(zq.shape)}")
+        if cv is not None and mode != "split":
+            raise ValueError("center_vec fusion is a split-mode feature")
+        if cv is not None:
+            _check(cv, "cv", torch.float32, 1)
+            if cv.shape[0] != contract:
+                raise ValueError(
+                    "cv must have one entry per contraction row")
+        dev = zq.device
+        passes = TALL_PASSES[mode]
+        splits = tall_splits(kwi, contract, n, passes, dev)
+        ct = torch.empty((n, 16 * kwi), dtype=torch.float32, device=dev)
+        parts = torch.empty(lib.mx_tall_parts_bytes(contract, n, passes),
+                            dtype=torch.uint8, device=dev)
+        v = vwork = work = None
+        if cv is not None:
+            v = torch.empty(n, dtype=torch.float32, device=dev)
+            vwork = torch.empty((lib.mx_tall_vrows(contract), n),
+                                dtype=torch.float32, device=dev)
+        if splits > 1:
+            work = torch.empty((splits, n, 16 * kwi), dtype=torch.float32,
+                               device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        LAUNCHES[name] += 1
+        TALL_WIDTHS[(mode, n)] += 1
+        _raise_if(lib.mx_tall_dgemm(_ptr(zq), kwi, _ptr(b), contract, n,
+                                    _ptr(cv), _ptr(ct), _ptr(v), _ptr(work),
+                                    _ptr(vwork), _ptr(parts), splits, passes,
+                                    ctypes.c_void_p(stream)), name)
+        return ct, v
 
 
 def _wave_fill(rows: int, kw: int, n: int, info: dict, sms: int):
@@ -344,38 +351,41 @@ def wide_dgemm(zq: torch.Tensor, b: torch.Tensor, rhs: str,
     ``split_words``: words a contraction split (a multiple of the instance's
     stage; default :func:`wide_split_words`).  The bf16 parts and the split
     partials go through scratch allocated here."""
-    lib = _load()
-    _check(zq, "zq", torch.int32, 2)
-    _check(b, "b", torch.float32, 2)
-    rows, kw = zq.shape
-    cols, n = b.shape
-    if rhs not in WIDE_PASSES:
-        raise ValueError(f"rhs must be split/f32/bf16/hilo, got {rhs!r}")
-    if cols > 16 * kw or n < 1 or b.device != zq.device:
-        raise ValueError(f"wide_dgemm: b {tuple(b.shape)} does not fit zq "
-                         f"{tuple(zq.shape)}")
-    dev = zq.device
-    passes = WIDE_PASSES[rhs]
-    if split_words is None:
-        key = (rows, kw, n, passes, dev)
-        if key not in _wide_splits:
-            _wide_splits[key] = wide_split_words(
-                rows, kw, n, wide_info()[(passes, wide_tiles(n, passes)[1])],
-                _sms(dev))
-        split_words = _wide_splits[key]
-    splits = -(-kw // split_words)
-    out = torch.empty((rows, n), dtype=torch.float32, device=dev)
-    work = torch.empty((splits, rows, n), dtype=torch.float32, device=dev) \
-        if splits > 1 else None
-    parts = torch.empty(lib.mx_wide_parts_bytes(kw, n, passes),
-                        dtype=torch.uint8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     name = f"wide_dgemm_{rhs}"
-    LAUNCHES[name] += 1
-    _raise_if(lib.mx_wide_dgemm(_ptr(zq), rows, kw, _ptr(b), cols, n, passes,
-                                _ptr(parts), split_words, _ptr(out),
-                                _ptr(work), ctypes.c_void_p(stream)), name)
-    return out
+    with span(name, zq=zq, b=b, mode=rhs):
+        lib = _load()
+        _check(zq, "zq", torch.int32, 2)
+        _check(b, "b", torch.float32, 2)
+        rows, kw = zq.shape
+        cols, n = b.shape
+        if rhs not in WIDE_PASSES:
+            raise ValueError(
+                f"rhs must be split/f32/bf16/hilo, got {rhs!r}")
+        if cols > 16 * kw or n < 1 or b.device != zq.device:
+            raise ValueError(f"wide_dgemm: b {tuple(b.shape)} does not fit "
+                             f"zq {tuple(zq.shape)}")
+        dev = zq.device
+        passes = WIDE_PASSES[rhs]
+        if split_words is None:
+            key = (rows, kw, n, passes, dev)
+            if key not in _wide_splits:
+                info = wide_info()[(passes, wide_tiles(n, passes)[1])]
+                _wide_splits[key] = wide_split_words(rows, kw, n, info,
+                                                     _sms(dev))
+            split_words = _wide_splits[key]
+        splits = -(-kw // split_words)
+        out = torch.empty((rows, n), dtype=torch.float32, device=dev)
+        work = torch.empty((splits, rows, n), dtype=torch.float32,
+                           device=dev) if splits > 1 else None
+        parts = torch.empty(lib.mx_wide_parts_bytes(kw, n, passes),
+                            dtype=torch.uint8, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        LAUNCHES[name] += 1
+        _raise_if(lib.mx_wide_dgemm(_ptr(zq), rows, kw, _ptr(b), cols, n,
+                                    passes, _ptr(parts), split_words,
+                                    _ptr(out), _ptr(work),
+                                    ctypes.c_void_p(stream)), name)
+        return out
 
 
 def crossprod_tile() -> int:
@@ -400,31 +410,34 @@ def crossprod_info() -> dict:
 
 def crossprod(zq: torch.Tensor) -> torch.Tensor:
     """K3: exact int32 decode(zq) decode(zq)^T, [rows, rows]."""
-    lib = _load()
-    _check(zq, "zq", torch.int32, 2)
-    rows, kw = zq.shape
-    out = torch.empty((rows, rows), dtype=torch.int32, device=zq.device)
-    stream = torch.cuda.current_stream(zq.device).cuda_stream
-    LAUNCHES["crossprod"] += 1
-    _raise_if(lib.mx_crossprod(_ptr(zq), rows, kw, _ptr(out),
-                               ctypes.c_void_p(stream)), "crossprod")
-    return out
+    with span("crossprod", zq=zq):
+        lib = _load()
+        _check(zq, "zq", torch.int32, 2)
+        rows, kw = zq.shape
+        out = torch.empty((rows, rows), dtype=torch.int32, device=zq.device)
+        stream = torch.cuda.current_stream(zq.device).cuda_stream
+        LAUNCHES["crossprod"] += 1
+        _raise_if(lib.mx_crossprod(_ptr(zq), rows, kw, _ptr(out),
+                                   ctypes.c_void_p(stream)), "crossprod")
+        return out
 
 
 def _rect(za: torch.Tensor, zb: torch.Tensor, upper: bool, name: str):
-    lib = _load()
-    _check(za, "za", torch.int32, 2)
-    _check(zb, "zb", torch.int32, 2)
-    (ra, kw), (rb, kwb) = za.shape, zb.shape
-    if kw != kwb or za.device != zb.device:
-        raise ValueError(f"{name}: words {tuple(za.shape)} and "
-                         f"{tuple(zb.shape)} do not pair")
-    out = torch.empty((ra, rb), dtype=torch.int32, device=za.device)
-    stream = torch.cuda.current_stream(za.device).cuda_stream
-    LAUNCHES[name] += 1
-    _raise_if(lib.mx_crossprod_rect(_ptr(za), ra, _ptr(zb), rb, kw, int(upper),
-                                    _ptr(out), ctypes.c_void_p(stream)), name)
-    return out
+    with span(name, zq=za, b=zb):
+        lib = _load()
+        _check(za, "za", torch.int32, 2)
+        _check(zb, "zb", torch.int32, 2)
+        (ra, kw), (rb, kwb) = za.shape, zb.shape
+        if kw != kwb or za.device != zb.device:
+            raise ValueError(f"{name}: words {tuple(za.shape)} and "
+                             f"{tuple(zb.shape)} do not pair")
+        out = torch.empty((ra, rb), dtype=torch.int32, device=za.device)
+        stream = torch.cuda.current_stream(za.device).cuda_stream
+        LAUNCHES[name] += 1
+        _raise_if(lib.mx_crossprod_rect(_ptr(za), ra, _ptr(zb), rb, kw,
+                                        int(upper), _ptr(out),
+                                        ctypes.c_void_p(stream)), name)
+        return out
 
 
 def crossprod_rect(za: torch.Tensor, zb: torch.Tensor) -> torch.Tensor:
@@ -468,23 +481,23 @@ def crossprod_weighted(zq: torch.Tensor, w: torch.Tensor,
     [16, kw] plane-major.  ``triangle`` walks the upper tile pairs and
     mirrors; otherwise every tile is computed.  w's three masked bf16
     digits go through scratch allocated here."""
-    lib = _load()
-    _check(zq, "zq", torch.int32, 2)
-    _check(w, "w", torch.float32, 2)
-    rows, kw = zq.shape
-    if tuple(w.shape) != (16, kw) or w.device != zq.device:
-        raise ValueError(f"crossprod_weighted: w {tuple(w.shape)} must be "
-                         f"[16, {kw}] on {zq.device}")
-    out = torch.empty((rows, rows), dtype=torch.float32, device=zq.device)
-    dg = torch.empty(lib.mx_weighted_digits_bytes(kw), dtype=torch.uint8,
-                     device=zq.device)
-    stream = torch.cuda.current_stream(zq.device).cuda_stream
-    LAUNCHES["crossprod_weighted"] += 1
-    _raise_if(lib.mx_crossprod_weighted(_ptr(zq), rows, kw, _ptr(w),
-                                        int(not triangle), _ptr(dg),
-                                        _ptr(out), ctypes.c_void_p(stream)),
-              "crossprod_weighted")
-    return out
+    with span("crossprod_weighted", zq=zq, b=w):
+        lib = _load()
+        _check(zq, "zq", torch.int32, 2)
+        _check(w, "w", torch.float32, 2)
+        rows, kw = zq.shape
+        if tuple(w.shape) != (16, kw) or w.device != zq.device:
+            raise ValueError(f"crossprod_weighted: w {tuple(w.shape)} must "
+                             f"be [16, {kw}] on {zq.device}")
+        out = torch.empty((rows, rows), dtype=torch.float32, device=zq.device)
+        dg = torch.empty(lib.mx_weighted_digits_bytes(kw), dtype=torch.uint8,
+                         device=zq.device)
+        stream = torch.cuda.current_stream(zq.device).cuda_stream
+        LAUNCHES["crossprod_weighted"] += 1
+        _raise_if(lib.mx_crossprod_weighted(
+            _ptr(zq), rows, kw, _ptr(w), int(not triangle), _ptr(dg),
+            _ptr(out), ctypes.c_void_p(stream)), "crossprod_weighted")
+        return out
 
 
 def digit_quads(d: torch.Tensor, kw: int) -> torch.Tensor:
@@ -603,11 +616,12 @@ def matmul_int8(zq: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     ``d`` int8 digits [cols <= 16*kw, n] (rows past ``cols`` count as zero);
     the caller keeps 192 * 16 * kw < 2^31.  The digits are laid out as
     :func:`digit_quads` and go through :func:`matmul_int8_quads`."""
-    _check(zq, "zq", torch.int32, 2)
-    _check(d, "d", torch.int8, 2)
-    kw = zq.shape[1]
-    cols, n = d.shape
-    if cols > 16 * kw or n < 1 or d.device != zq.device:
-        raise ValueError(f"matmul_int8: digits {tuple(d.shape)} do not fit "
-                         f"zq {tuple(zq.shape)}")
-    return matmul_int8_quads(zq, digit_quads(d, kw), n)
+    with span("matmul_int8", zq=zq, b=d):
+        _check(zq, "zq", torch.int32, 2)
+        _check(d, "d", torch.int8, 2)
+        kw = zq.shape[1]
+        cols, n = d.shape
+        if cols > 16 * kw or n < 1 or d.device != zq.device:
+            raise ValueError(f"matmul_int8: digits {tuple(d.shape)} do not "
+                             f"fit zq {tuple(zq.shape)}")
+        return matmul_int8_quads(zq, digit_quads(d, kw), n)

@@ -50,6 +50,7 @@ from .solve.cg import (cg, grm_cg_solve, grm_cg_solve_refined, grm_diag,
                        grm_matvec, grm_matvec_f64, jacobi_minv)
 from .solve.dense import dense_solve
 from .streamed import StreamedGeno
+from .utils.logging import span
 
 
 CONTAINERS = (GenoMatrix, StreamedGeno, ShardedGeno, ShardedGeno2D)
@@ -162,94 +163,101 @@ def gblup(g, y: np.ndarray, h2: float = 0.5, n_pcs: int = 10,
     ``verbose`` prints its iterations, and nothing on a ``GenoMatrix``); a
     ShardedGeno / ShardedGeno2D takes "cg" only, each solve one CG across
     the mesh."""
-    if solver not in ("cg", "refined", "dense"):
-        raise ValueError(f"solver must be cg/refined/dense, got {solver!r}")
-    g = _check_container(g)
-    streamed = isinstance(g, StreamedGeno)
-    if not isinstance(g, GenoMatrix) and solver != "cg":
-        raise ValueError("sharded/streamed GBLUP supports solver='cg' only")
-    n = g.indiv
-    lam = (1.0 - h2) / h2
-    y = np.asarray(y, dtype=np.float64).reshape(n)
+    with span("gblup"):
+        if solver not in ("cg", "refined", "dense"):
+            raise ValueError(
+                f"solver must be cg/refined/dense, got {solver!r}")
+        g = _check_container(g)
+        streamed = isinstance(g, StreamedGeno)
+        if not isinstance(g, GenoMatrix) and solver != "cg":
+            raise ValueError(
+                "sharded/streamed GBLUP supports solver='cg' only")
+        n = g.indiv
+        lam = (1.0 - h2) / h2
+        y = np.asarray(y, dtype=np.float64).reshape(n)
 
-    pcs = None
-    cols = [np.ones((n, 1))]
-    if covariates is not None:
-        cov = np.asarray(covariates, dtype=np.float64)
-        if cov.ndim == 1:
-            cov = cov[:, None]
-        if cov.shape[0] != n:
-            raise ValueError(f"covariates have {cov.shape[0]} rows, "
-                             f"expected {n}")
-        cols.append(cov)
-    if n_pcs > 0:
-        _, pcs = randomized_grm_pca(g, k=n_pcs, seed=seed)
-        cols.append(pcs)
-    x = np.concatenate(cols, axis=1)
-    p = x.shape[1]
-    sigma2 = float(g.sigma2)
-    converged = True
+        pcs = None
+        cols = [np.ones((n, 1))]
+        if covariates is not None:
+            cov = np.asarray(covariates, dtype=np.float64)
+            if cov.ndim == 1:
+                cov = cov[:, None]
+            if cov.shape[0] != n:
+                raise ValueError(f"covariates have {cov.shape[0]} rows, "
+                                 f"expected {n}")
+            cols.append(cov)
+        if n_pcs > 0:
+            _, pcs = randomized_grm_pca(g, k=n_pcs, seed=seed)
+            cols.append(pcs)
+        x = np.concatenate(cols, axis=1)
+        p = x.shape[1]
+        sigma2 = float(g.sigma2)
+        converged = True
 
-    def _cg(rhs: np.ndarray) -> Tuple[np.ndarray, int]:
-        """(Z_c Z_c^T + lam sigma2 I) b' = rhs; returns (sigma2 b', iters)."""
-        nonlocal converged
-        if streamed:
-            xs, iters, rel = g.cg_solve(rhs, lam=lam * sigma2, scale=False,
-                                        tol=tol, maxiter=maxiter,
-                                        verbose=verbose)
-            converged &= bool(np.all(rel <= tol))
-            return xs * sigma2, iters
-        if solver == "refined":
-            xs, _, inner, rel = grm_cg_solve_refined(
-                g, rhs, lam=lam * sigma2, scale=False, tol=tol,
-                inner_maxiter=maxiter)
-            converged &= bool(rel.max() <= tol)
-            return xs * sigma2, inner
-        if isinstance(g, ShardedGeno):
-            res = sharded_cg_solve(g, rhs, lam=lam * sigma2, tol=tol,
-                                   maxiter=maxiter)
-        elif isinstance(g, ShardedGeno2D):
-            res = sharded_cg_solve_2d(g, rhs, lam=lam * sigma2, tol=tol,
-                                      maxiter=maxiter)
+        def _cg(rhs: np.ndarray) -> Tuple[np.ndarray, int]:
+            """(Z_c Z_c^T + lam sigma2 I) b' = rhs; returns
+            (sigma2 b', iters)."""
+            nonlocal converged
+            if streamed:
+                xs, iters, rel = g.cg_solve(rhs, lam=lam * sigma2, scale=False,
+                                            tol=tol, maxiter=maxiter,
+                                            verbose=verbose)
+                converged &= bool(np.all(rel <= tol))
+                return xs * sigma2, iters
+            if solver == "refined":
+                xs, _, inner, rel = grm_cg_solve_refined(
+                    g, rhs, lam=lam * sigma2, scale=False, tol=tol,
+                    inner_maxiter=maxiter)
+                converged &= bool(rel.max() <= tol)
+                return xs * sigma2, inner
+            if isinstance(g, ShardedGeno):
+                res = sharded_cg_solve(g, rhs, lam=lam * sigma2, tol=tol,
+                                       maxiter=maxiter)
+            elif isinstance(g, ShardedGeno2D):
+                res = sharded_cg_solve_2d(g, rhs, lam=lam * sigma2, tol=tol,
+                                          maxiter=maxiter)
+            else:
+                res = grm_cg_solve(g, rhs, lam=lam * sigma2, scale=False,
+                                   tol=tol, maxiter=maxiter)
+            converged &= bool(torch.all(res.residual_norm <= tol))
+            return (host_global(res.x)[:n].astype(np.float64) * sigma2,
+                    res.iterations)
+
+        def _dense(rhs: np.ndarray) -> np.ndarray:
+            return dense_solve(gmat, torch.as_tensor(
+                rhs, dtype=torch.float32, device=g.device)).x.cpu().numpy(
+            ).astype(np.float64)
+
+        rhs = np.concatenate([x, y[:, None]], axis=1)
+        if solver == "dense":
+            gmat = grm(g, scale=True, dtype=torch.float32)
+            gmat.diagonal().add_(lam)
+            b, iters = _dense(rhs), 0
         else:
-            res = grm_cg_solve(g, rhs, lam=lam * sigma2, scale=False,
-                               tol=tol, maxiter=maxiter)
-        converged &= bool(torch.all(res.residual_norm <= tol))
-        return (host_global(res.x)[:n].astype(np.float64) * sigma2,
-                res.iterations)
-
-    def _dense(rhs: np.ndarray) -> np.ndarray:
-        return dense_solve(gmat, torch.as_tensor(
-            rhs, dtype=torch.float32, device=g.device)).x.cpu().numpy(
-        ).astype(np.float64)
-
-    rhs = np.concatenate([x, y[:, None]], axis=1)
-    if solver == "dense":
-        gmat = grm(g, scale=True, dtype=torch.float32)
-        gmat.diagonal().add_(lam)
-        b, iters = _dense(rhs), 0
-    else:
-        b, iters = _cg(rhs)
-    bx, by = b[:, :p], b[:, p]
-    beta = np.linalg.solve(x.T @ bx, x.T @ by)
-    if solver == "dense":
-        u = _dense((y - x @ beta)[:, None])[:, 0]
-        gmat.diagonal().sub_(lam)
-        g_hat = (gmat @ torch.as_tensor(u, dtype=torch.float32,
-                                        device=g.device)).cpu().numpy()
-        g_hat = g_hat.astype(np.float64)
-    else:
-        u, it_u = _cg((y - x @ beta)[:, None])
-        u = u[:, 0]
-        iters += it_u
-        if solver == "refined":
-            g_hat = grm_matvec_f64(g, u[:, None])[:, 0] / sigma2
+            with span("gblup.solve"):
+                b, iters = _cg(rhs)
+        bx, by = b[:, :p], b[:, p]
+        beta = np.linalg.solve(x.T @ bx, x.T @ by)
+        if solver == "dense":
+            u = _dense((y - x @ beta)[:, None])[:, 0]
+            gmat.diagonal().sub_(lam)
+            g_hat = (gmat @ torch.as_tensor(u, dtype=torch.float32,
+                                            device=g.device)).cpu().numpy()
+            g_hat = g_hat.astype(np.float64)
         else:
-            g_hat = _grm_matvec_of(g)(torch.as_tensor(
-                u[:, None], dtype=torch.float32, device=g.device))
-            g_hat = g_hat.cpu().numpy().astype(np.float64)[:, 0] / sigma2
-    return GBLUPResult(beta=beta, g_hat=g_hat, fitted=x @ beta + g_hat,
-                       pcs=pcs, cg_iterations=iters, u=u, converged=converged)
+            with span("gblup.solve"):
+                u, it_u = _cg((y - x @ beta)[:, None])
+            u = u[:, 0]
+            iters += it_u
+            if solver == "refined":
+                g_hat = grm_matvec_f64(g, u[:, None])[:, 0] / sigma2
+            else:
+                g_hat = _grm_matvec_of(g)(torch.as_tensor(
+                    u[:, None], dtype=torch.float32, device=g.device))
+                g_hat = g_hat.cpu().numpy().astype(np.float64)[:, 0] / sigma2
+        return GBLUPResult(beta=beta, g_hat=g_hat, fitted=x @ beta + g_hat,
+                           pcs=pcs, cg_iterations=iters, u=u,
+                           converged=converged)
 
 
 def snp_effects(g, res: GBLUPResult) -> np.ndarray:

@@ -40,6 +40,7 @@ from .parallel import (ShardedGeno, ShardedGeno2D, host_global,
                        sharded_snp_sq_stats)
 from .solve.cg import cg, grm_cg_solve, grm_diag, grm_matvec, jacobi_minv
 from .streamed import StreamedGeno
+from .utils.logging import span
 
 
 # the least share of sigma2 that the SNPs off one chromosome must carry for
@@ -99,39 +100,46 @@ def _snp_residual_denominators(g, x: np.ndarray,
     (Z^T X) plus the exact sum z^2 per SNP (a pass of its own, chunk by
     chunk, on a streamed panel; row-parallel on a sharded one)."""
     a = _t_pass(g, x)                                           # [snps, p]
-    if isinstance(g, ShardedGeno):
-        zsq = host_global(sharded_snp_sq_stats(g)).astype(np.float64)
-    elif isinstance(g, StreamedGeno):
-        zsq = np.concatenate([_host(packed_row_sq_stats(c.zq_t))[: c.snps]
-                              for c in g.each_chunk(0)])
-    else:
-        zsq = _host(packed_row_sq_stats(g.zq_t))[: g.snps]      # diag(Z^T Z)
-    return np.maximum(zsq - np.einsum("sp,pq,sq->s", a, xtx_inv, a), 0.0)
+    with span("gwas.row_sq_stats"):
+        if isinstance(g, ShardedGeno):
+            zsq = host_global(sharded_snp_sq_stats(g)).astype(np.float64)
+        elif isinstance(g, StreamedGeno):
+            zsq = np.concatenate([_host(packed_row_sq_stats(c.zq_t))
+                                  [: c.snps] for c in g.each_chunk(0)])
+        else:
+            zsq = _host(packed_row_sq_stats(g.zq_t))[: g.snps]  # diag(Z^T Z)
+    with span("gwas.denominators"):
+        return np.maximum(zsq - np.einsum("sp,pq,sq->s", a, xtx_inv, a),
+                          0.0)
 
 
 def _t_pass(g, v: np.ndarray) -> np.ndarray:
     """Z^T v (uncentered) as one packed 't' pass, numpy f64 [snps, k]."""
-    if v.ndim == 1:
-        v = v[:, None]
-    if isinstance(g, ShardedGeno):
-        return host_global(sharded_dgemm(g, v.astype(np.float32), trans="t",
-                                         center=False)).astype(np.float64)
-    if isinstance(g, StreamedGeno):
-        return g.dgemm(v.astype(np.float32), trans="t",
-                       center=False).astype(np.float64)
-    return _host(dgemm(g, v.astype(np.float32), trans="t", center=False))
+    with span("gwas.t_pass"):
+        if v.ndim == 1:
+            v = v[:, None]
+        if isinstance(g, ShardedGeno):
+            return host_global(sharded_dgemm(
+                g, v.astype(np.float32), trans="t",
+                center=False)).astype(np.float64)
+        if isinstance(g, StreamedGeno):
+            return g.dgemm(v.astype(np.float32), trans="t",
+                           center=False).astype(np.float64)
+        return _host(dgemm(g, v.astype(np.float32), trans="t",
+                           center=False))
 
 
 def _pvalues(dist: str, stat: np.ndarray, df: int = 1) -> np.ndarray:
-    try:
-        from scipy import stats
-    except ImportError:  # pragma: no cover - scipy is a test dependency
-        return np.full_like(stat, np.nan)
-    if dist == "t":
-        return 2.0 * stats.t.sf(np.abs(stat), df)
-    if dist == "norm":
-        return 2.0 * stats.norm.sf(np.abs(stat))
-    return stats.chi2.sf(stat, 1)
+    with span("gwas.pvalues"):
+        try:
+            from scipy import stats
+        except ImportError:  # pragma: no cover - scipy is a test dependency
+            return np.full_like(stat, np.nan)
+        if dist == "t":
+            return 2.0 * stats.t.sf(np.abs(stat), df)
+        if dist == "norm":
+            return 2.0 * stats.norm.sf(np.abs(stat))
+        return stats.chi2.sf(stat, 1)
 
 
 def gwas_linear(g, y: np.ndarray,
@@ -140,28 +148,31 @@ def gwas_linear(g, y: np.ndarray,
     ``y``: [indiv] phenotype; ``covariates``: optional [indiv, c] (the
     intercept is always added).  t statistics use the per-SNP residual
     variance (y~^T y~ - beta_s^2 d_s) / (n - p - 1)."""
-    g = _scan_container(g)
-    n = g.indiv
-    y = np.asarray(y, np.float64).reshape(n)
-    x = _design(n, covariates)
-    p = x.shape[1]
-    df = n - p - 1
-    if df <= 0:
-        raise ValueError(f"not enough residual df: n={n}, p={p}")
-    xtx_inv = np.linalg.inv(x.T @ x)
-    y_res = y - x @ (xtx_inv @ (x.T @ y))
-    yty = float(y_res @ y_res)
+    with span("gwas_linear"):
+        g = _scan_container(g)
+        n = g.indiv
+        y = np.asarray(y, np.float64).reshape(n)
+        x = _design(n, covariates)
+        p = x.shape[1]
+        df = n - p - 1
+        if df <= 0:
+            raise ValueError(f"not enough residual df: n={n}, p={p}")
+        xtx_inv = np.linalg.inv(x.T @ x)
+        y_res = y - x @ (xtx_inv @ (x.T @ y))
+        yty = float(y_res @ y_res)
 
-    num = _t_pass(g, y_res)[:, 0]                               # Z^T M y
-    d = _snp_residual_denominators(g, x, xtx_inv)
-    with np.errstate(divide="ignore", invalid="ignore"):
-        beta = np.where(d > 0, num / np.maximum(d, 1e-300), 0.0)
-        sigma2 = np.maximum(yty - beta * num, 0.0) / df
-        se = np.sqrt(np.where(d > 0, sigma2 / np.maximum(d, 1e-300),
-                              np.inf))
-        t = np.where(se > 0, beta / se, 0.0)
-        t = np.where(np.isfinite(t), t, 0.0)
-    return GWASResult(beta=beta, se=se, t=t, p=_pvalues("t", t, df), df=df)
+        num = _t_pass(g, y_res)[:, 0]                           # Z^T M y
+        d = _snp_residual_denominators(g, x, xtx_inv)
+        with span("gwas.epilogue"):
+            with np.errstate(divide="ignore", invalid="ignore"):
+                beta = np.where(d > 0, num / np.maximum(d, 1e-300), 0.0)
+                sigma2 = np.maximum(yty - beta * num, 0.0) / df
+                se = np.sqrt(np.where(d > 0, sigma2 / np.maximum(d, 1e-300),
+                                      np.inf))
+                t = np.where(se > 0, beta / se, 0.0)
+                t = np.where(np.isfinite(t), t, 0.0)
+            pv = _pvalues("t", t, df)
+        return GWASResult(beta=beta, se=se, t=t, p=pv, df=df)
 
 
 def _sampled_columns(g, snps: np.ndarray) -> np.ndarray:

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.logging import span
+
 
 def decode_planar16(words: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """Decode planar16 words [R, W] to genotypes [R, 16*W] in natural
@@ -25,10 +27,11 @@ def packed_indicator2(zq: torch.Tensor) -> torch.Tensor:
 def packed_row_sq_stats(zq: torch.Tensor) -> torch.Tensor:
     """Per-row sum of z^2 over a planar16 packing, exactly, as f32 [rows]:
     sum z^2 = sum z + 2 * #{z = 2} for z in {0, 1, 2}."""
-    s1 = torch.zeros(zq.shape[0], dtype=torch.int32, device=zq.device)
-    c2 = torch.zeros_like(s1)
-    for m in range(16):
-        plane = (zq >> (2 * m)) & 3
-        s1 += plane.sum(dim=1, dtype=torch.int32)
-        c2 += (plane == 2).sum(dim=1, dtype=torch.int32)
-    return (s1 + 2 * c2).to(torch.float32)
+    with span("packed_row_sq_stats"):
+        s1 = torch.zeros(zq.shape[0], dtype=torch.int32, device=zq.device)
+        c2 = torch.zeros_like(s1)
+        for m in range(16):
+            plane = (zq >> (2 * m)) & 3
+            s1 += plane.sum(dim=1, dtype=torch.int32)
+            c2 += (plane == 2).sum(dim=1, dtype=torch.int32)
+        return (s1 + 2 * c2).to(torch.float32)

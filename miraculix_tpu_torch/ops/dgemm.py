@@ -21,10 +21,12 @@ float64 (:func:`packed_matmul_exact`).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import _kernels
 from ..geno import GenoMatrix, on_compute
+from ..utils.logging import span
 from .common import decode_planar16
 
 TALL_LIMITS = {"fast": 64, "bf16": 128, "f32": 128}  # widest tall RHS per tier
@@ -345,9 +347,19 @@ def dgemm(g: GenoMatrix, b, trans: str = "n", center=True,
     caller's B and user center are taken in float64, the whole epilogue
     runs on the device in float64, and the result is numpy float64.
     """
-    c = _dgemm(on_compute(g), b, trans, center, normalize, precision,
-               ignore_missings)
-    return c.cpu().numpy() if precision == "f64" else c
+    with span("dgemm", trans=trans, columns=_columns(b),
+              precision=precision):
+        c = _dgemm(on_compute(g), b, trans, center, normalize, precision,
+                   ignore_missings)
+        return c.cpu().numpy() if precision == "f64" else c
+
+
+def _columns(b) -> int:
+    """B's columns (1 for a vector), read without converting a tensor."""
+    if isinstance(b, torch.Tensor):
+        return 1 if b.dim() < 2 else b.size(1)
+    shape = np.shape(b)
+    return shape[1] if len(shape) > 1 else 1
 
 
 def _dgemm(g: GenoMatrix, b, trans: str = "n", center=True,

@@ -28,6 +28,7 @@ from .. import _kernels
 from ..geno import (ROW_MULT, GenoMatrix, _device, _words, from_dense,
                     on_compute)
 from ..io import bed, codec, native
+from ..utils.logging import span
 from .common import decode_planar16, packed_row_sq_stats
 from .dgemm import dgemm
 from .sparse import sparse_times_geno
@@ -261,9 +262,20 @@ def grm(g: GenoMatrix, scale: bool = True, dtype=torch.float32,
     crossproduct of the called-indicator packing, B9) instead of the global
     2 sum p(1-p); it needs missing info, implies the correction and ignores
     ``scale``; pairs sharing no called SNP come back 0."""
-    g = on_compute(g)
+    with span("grm"):
+        g = on_compute(g)
+        with span("grm.crossprod"):
+            m = snp_crossprod(g).to(dtype)
+        with span("grm.finish"):
+            return _grm_finish(g, m, scale, dtype, correct_missing,
+                               pair_denominator)
+
+
+def _grm_finish(g: GenoMatrix, m: torch.Tensor, scale: bool, dtype,
+                correct_missing, pair_denominator: bool) -> torch.Tensor:
+    """The GRM from the raw crossproduct ``m``, in place: centered (with
+    the missing entries' correction where asked), then scaled."""
     n = g.indiv
-    m = snp_crossprod(g).to(dtype)
     if pair_denominator:
         if g.miss_rows_n is None:
             raise ValueError("pair_denominator requires a panel built with "

@@ -4,7 +4,11 @@ Torch twin of ``miraculix_tpu.solve.cg``: block CG with per-column
 alpha/beta and the same ``denom > 0`` / ``rz > 0`` guards, so iteration
 counts match the reference.  The operator G v = Z_c (Z_c^T v) is two packed
 products.  The loop runs in Python and reads the stop test back to the host
-once per iteration (ROADMAP: move the loop onto the device).
+once per iteration (ROADMAP: move the loop onto the device).  Spans
+(``utils.logging.span``, recorded while a profile does): ``cg`` a solve,
+``cg.iteration`` a pass of the loop with the stop test that ends it,
+``cg.stop_test`` each read-back (the host's wait for the card; the first
+comes before any pass), ``grm_cg_solve`` and ``grm_matvec`` their calls.
 
 The f64 grade: :func:`grm_matvec_f64` runs both products through the exact
 digit tier (``packed_matmul_f64``) with a float64 epilogue on the device, and
@@ -21,6 +25,7 @@ import torch
 from ..geno import GenoMatrix, on_compute
 from ..ops.common import packed_row_sq_stats
 from ..ops.dgemm import dgemm, packed_matmul_f64
+from ..utils.logging import span
 
 
 class CGResult(NamedTuple):
@@ -45,34 +50,43 @@ def cg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     squeeze = b.dim() == 1
     if squeeze:
         b = b[:, None]
-    x = torch.zeros_like(b) if x0 is None else (x0[:, None] if squeeze else x0)
-    if dot is None:
-        def dot(u, v):
-            return torch.sum(u * v, dim=0)
+    with span("cg", columns=b.size(1)):
+        x = torch.zeros_like(b) if x0 is None else \
+            (x0[:, None] if squeeze else x0)
+        if dot is None:
+            def dot(u, v):
+                return torch.sum(u * v, dim=0)
 
-    def precond(r):
-        return r if minv is None else minv[:, None] * r
+        def precond(r):
+            return r if minv is None else minv[:, None] * r
 
-    r = b if x0 is None else b - matvec(x)
-    z = precond(r)
-    p = z
-    rs = dot(r, r)
-    rz = dot(r, z)
-    it = 0
-    while it < maxiter and bool(torch.any(torch.sqrt(rs) > tol)):
-        ap = matvec(p)
-        denom = dot(p, ap)
-        alpha = torch.where(denom > 0, rz / denom, torch.zeros_like(rz))
-        x = x + alpha[None, :] * p
-        r = r - alpha[None, :] * ap
+        r = b if x0 is None else b - matvec(x)
         z = precond(r)
+        p = z
         rs = dot(r, r)
-        rz_new = dot(r, z)
-        beta = torch.where(rz > 0, rz_new / rz, torch.zeros_like(rz))
-        p = z + beta[None, :] * p
-        rz = rz_new
-        it += 1
-    return CGResult(x[:, 0] if squeeze else x, it, torch.sqrt(rs))
+        rz = dot(r, z)
+        it = 0
+        with span("cg.stop_test"):
+            more = it < maxiter and bool(torch.any(torch.sqrt(rs) > tol))
+        while more:
+            with span("cg.iteration"):
+                ap = matvec(p)
+                denom = dot(p, ap)
+                alpha = torch.where(denom > 0, rz / denom,
+                                    torch.zeros_like(rz))
+                x = x + alpha[None, :] * p
+                r = r - alpha[None, :] * ap
+                z = precond(r)
+                rs = dot(r, r)
+                rz_new = dot(r, z)
+                beta = torch.where(rz > 0, rz_new / rz, torch.zeros_like(rz))
+                p = z + beta[None, :] * p
+                rz = rz_new
+                it += 1
+                with span("cg.stop_test"):
+                    more = it < maxiter and \
+                        bool(torch.any(torch.sqrt(rs) > tol))
+        return CGResult(x[:, 0] if squeeze else x, it, torch.sqrt(rs))
 
 
 def host_pcg(op, b, tol, maxiter, minv=None):
@@ -131,12 +145,13 @@ def grm_matvec(g: GenoMatrix, v: torch.Tensor, center: bool = True,
                scale: bool = False, precision: str = "fast") -> torch.Tensor:
     """G v with G the (optionally VanRaden-scaled) relationship matrix, as
     two packed products."""
-    g = on_compute(g)
-    zv = dgemm(g, v, trans="t", center=center, precision=precision)
-    gv = dgemm(g, zv, trans="n", center=center, precision=precision)
-    if scale:
-        gv = gv / g.sigma2
-    return gv
+    with span("grm_matvec"):
+        g = on_compute(g)
+        zv = dgemm(g, v, trans="t", center=center, precision=precision)
+        gv = dgemm(g, zv, trans="n", center=center, precision=precision)
+        if scale:
+            gv = gv / g.sigma2
+        return gv
 
 
 def grm_cg_solve(g: GenoMatrix, b, lam=0.0, center: bool = True,
@@ -145,17 +160,18 @@ def grm_cg_solve(g: GenoMatrix, b, lam=0.0, center: bool = True,
                  precondition: bool = False) -> CGResult:
     """Solve (G + lam I) x = b, G = Z_c Z_c^T (optionally / sigma^2).
     ``lam`` is a runtime value: a sweep over it rebuilds nothing."""
-    g = on_compute(g)
-    b = torch.as_tensor(b, dtype=torch.float32, device=g.device)
-    lam = torch.as_tensor(lam, dtype=torch.float32, device=g.device)
+    with span("grm_cg_solve"):
+        g = on_compute(g)
+        b = torch.as_tensor(b, dtype=torch.float32, device=g.device)
+        lam = torch.as_tensor(lam, dtype=torch.float32, device=g.device)
 
-    def op(v):
-        return grm_matvec(g, v, center=center, scale=scale,
-                          precision=precision) + lam * v
+        def op(v):
+            return grm_matvec(g, v, center=center, scale=scale,
+                              precision=precision) + lam * v
 
-    minv = jacobi_minv(grm_diag(g, center=center, scale=scale) + lam) \
-        if precondition else None
-    return cg(op, b, tol=tol, maxiter=maxiter, minv=minv)
+        minv = jacobi_minv(grm_diag(g, center=center, scale=scale) + lam) \
+            if precondition else None
+        return cg(op, b, tol=tol, maxiter=maxiter, minv=minv)
 
 
 def grm_matvec_f64(g: GenoMatrix, v, center: bool = True,
