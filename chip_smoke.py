@@ -43,7 +43,9 @@ codec of ``miraculix_tpu_torch/io/native`` and
    both its instances, and one ``packed_matmul_exact`` product at 12
    columns is timed by step (digits, layout, kernel, recombination) beside
    the FP64 tensor cores (a float64 ``torch.matmul`` of the decoded
-   panel).  Each kernel is timed beside its plain version, one PyTorch
+   panel).  The row statistics' kernel is held to its plain 16-plane loop
+   (exactly equal) on zq_t and zq_n, on the panel's, random and all-2
+   words.  Each kernel is timed beside its plain version, one PyTorch
    library call on the pre-decoded panel, and its bound on the card;
 2. runs the main GBLUP path at that size from the launch counters' zero:
    simulate -> write .bed -> ``from_bed`` on the GPU -> ``grm`` (diagonal
@@ -370,20 +372,23 @@ SOURCES = {  # kernel -> (source, TPU kernel it replaces)
                            "miraculix_tpu/ops/grm.py:450"),
     "matmul_int8": ("miraculix_tpu_torch/csrc/matmul_int8.cu",
                     "miraculix_tpu/ops/dgemm.py:625"),
+    # the reference's packed_row_sq_stats is plain jnp, no Pallas kernel
+    "row_sq_stats": ("miraculix_tpu_torch/csrc/row_sq_stats.cu", None),
 }
 # the unit and passes that bound each kernel: one rule for the products,
 # the bf16 tensor-core passes that the tier's grade needs (genotypes are
 # exact in bf16; B takes one bf16 piece at the bf16 tier, hi + lo at the
 # split tier, three pieces for its 24 bits at the f32 tier), as the tall and
 # wide kernels run them.  The integer crossproducts and the exact digit
-# product are one int8 pass; the weighted one is f32 grade.
+# product are one int8 pass; the weighted one is f32 grade.  The row
+# statistics take no pass of a unit: one read of the words bounds them.
 UNIT = {"tall_dgemm": ("bf16", 2), "tall_dgemm_cv": ("bf16", 2),
         "tall_dgemm_bf16": ("bf16", 1), "tall_dgemm_f32": ("bf16", 3),
         "wide_dgemm_split": ("bf16", 2), "wide_dgemm_hilo": ("bf16", 2),
         "wide_dgemm_bf16": ("bf16", 1), "wide_dgemm_f32": ("bf16", 3),
         "crossprod": ("int8", 1), "crossprod_rect": ("int8", 1),
         "crossprod_tri": ("int8", 1), "crossprod_weighted": ("bf16", 3),
-        "matmul_int8": ("int8", 1)}
+        "matmul_int8": ("int8", 1), "row_sq_stats": ("int8", 0)}
 
 
 class CheckFailed(Exception):
@@ -816,7 +821,9 @@ def streamed_phase(dev, sync_time, take_counts, bed_path, y, yb, cov, qtl,
     chunks, 2 cached and 2 copied to the card on every pass, each streamed
     call held to the resident panel's result and counted from zero: its
     kernel launches must equal its chunk products (chunks x passes x
-    products a chunk), no plain version may run, and its seconds, copies
+    products a chunk) and, apart, its ``row_sq_stats`` launches its chunks'
+    row statistics (one a chunk in each pass that computes them), no plain
+    version may run, and its seconds, copies
     and copy rate are printed beside the resident call's seconds; then the
     "ssgblup" cell's panel streamed the same way, one solve against the
     resident one."""
@@ -844,13 +851,19 @@ def streamed_phase(dev, sync_time, take_counts, bed_path, y, yb, cov, qtl,
         ref = "n/a" if ref_secs is None else f"{ref_secs:.3f} s"
         log(f"phase streamed {name}: {secs:.3f} s (resident {ref}); "
             f"{st['passes']} passes, {st['products']} chunk products, "
+            f"{st['row_stats']} chunk row statistics, "
             f"launches {counts}; host to device {st['h2d_copies']} chunk "
             f"copies, {st['h2d_bytes'] / max(st['passes'], 1) / 1e6:.1f} MB "
             f"a pass, {st['h2d_bytes'] / 1e9:.3f} GB in {copy_s:.4f} s of "
             f"copies = {rate:.2f} GB/s")
-        check(sum(counts.values()) == st["products"],
-              f"streamed {name}: {sum(counts.values())} kernel launches for "
+        products = sum(v for k, v in counts.items() if k != "row_sq_stats")
+        check(products == st["products"],
+              f"streamed {name}: {products} product launches for "
               f"{st['products']} chunk products")
+        rows = counts.get("row_sq_stats", 0)
+        check(rows == st["row_stats"],
+              f"streamed {name}: {rows} row_sq_stats launches for "
+              f"{st['row_stats']} chunk row statistics")
         check(not plain, f"streamed {name}: plain versions ran: {plain}")
         return out, secs, st
 
@@ -2255,7 +2268,9 @@ def main() -> int:
                                      pairwise_nonmissing, sparse_times_geno,
                                      subset_snps)
     from miraculix_tpu_torch.io import bed, native
-    from miraculix_tpu_torch.ops.common import decode_planar16
+    from miraculix_tpu_torch.ops.common import (decode_planar16,
+                                                packed_row_sq_stats,
+                                                packed_row_sq_stats_plain)
     from miraculix_tpu_torch.ops.dgemm import (exact_digits, exact_recombine,
                                                packed_matmul_exact,
                                                packed_matmul_int8,
@@ -2394,8 +2409,9 @@ def main() -> int:
         pms = event_ms(plain, 2)
         lms = event_ms(library, 3) if library is not None else None
         bms, by = bound(name, macs, nbytes)
-        log(f"time {name} {label}: kernel {ms:.4f} ms "
-            f"({2e-9 * macs / ms:.1f} T op/s), plain {pms:.4f} ms, "
+        rate = f" ({2e-9 * macs / ms:.1f} T op/s)" if macs else ""
+        log(f"time {name} {label}: kernel {ms:.4f} ms{rate}, "
+            f"plain {pms:.4f} ms, "
             f"library {'n/a' if lms is None else f'{lms:.4f} ms'}, "
             f"bound {bms:.4f} ms ({by}; the kernel at "
             f"{100 * bms / ms:.1f}% of it)")
@@ -2889,6 +2905,33 @@ def main() -> int:
                   "float64 product")
             del b64, d, unit, dq, prod, got, dec64, want
             torch.cuda.empty_cache()
+
+        # R1 at the main paths' packings: zq_t (GWAS's d_s, LD pruning's
+        # scales; a warp a row) and zq_n (grm_diag; a block a row), on the
+        # panel's words, on random words (the code 3, the sign bit) and on
+        # all-2 words (64 a word, the largest sums); bound by one read of the
+        # words and the f32 write
+        for label, zq in (("t", gm.zq_t), ("n", zn)):
+            rows, kw = zq.shape
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            bits = torch.randint(-2 ** 31, 2 ** 31, zq.shape, generator=gen,
+                                 dtype=torch.int32, device=dev)
+            twos = torch.full_like(zq, int(np.uint32(0xAAAAAAAA).view(
+                np.int32)))
+            for words, w in (("panel", zq), ("random", bits), ("all-2", twos)):
+                got = packed_row_sq_stats(w)
+                exact("row_sq_stats", f"{label} {words} words", got,
+                      packed_row_sq_stats_plain(w))
+            check(bool((got == 64 * kw).all()),
+                  f"R1 {label} on all-2 words: a row is not 64 * kw")
+            del bits, twos, got
+            torch.cuda.empty_cache()
+            t = timings("row_sq_stats", f"{label} {rows}x{kw}",
+                        lambda: packed_row_sq_stats(zq),
+                        lambda: packed_row_sq_stats_plain(zq), None, 0,
+                        4 * (zq.numel() + rows), 20)
+            if "ms" not in results["row_sq_stats"]:
+                record("row_sq_stats", 0.0, t)
         del gm, zn
         torch.cuda.empty_cache()
         check(not disagree, f"kernels disagree with their plain versions "

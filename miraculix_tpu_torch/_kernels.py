@@ -41,7 +41,7 @@ LAUNCHES = {"tall_dgemm": 0, "tall_dgemm_cv": 0, "tall_dgemm_bf16": 0,
             "tall_dgemm_f32": 0, "wide_dgemm_split": 0, "wide_dgemm_f32": 0,
             "wide_dgemm_bf16": 0, "wide_dgemm_hilo": 0, "crossprod": 0,
             "crossprod_rect": 0, "crossprod_tri": 0, "crossprod_weighted": 0,
-            "matmul_int8": 0}
+            "matmul_int8": 0, "row_sq_stats": 0}
 TALL_PASSES = {"bf16": 1, "split": 2, "f32": 3}  # bf16 parts of B per mode
 # bf16 parts of B per wide instance: "split" and "hilo" are one instance
 WIDE_PASSES = {"bf16": 1, "split": 2, "hilo": 2, "f32": 3}
@@ -166,6 +166,8 @@ def _load():
             lib.mx_matmul_int8.argtypes = [vp, i32, i32, vp, i32, i32, i32, vp,
                                            vp]
             lib.mx_matmul_int8.restype = i32
+            lib.mx_row_sq_stats.argtypes = [vp, i32, i32, vp, vp]
+            lib.mx_row_sq_stats.restype = i32
             _lib = lib
     return _lib
 
@@ -625,3 +627,23 @@ def matmul_int8(zq: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"matmul_int8: digits {tuple(d.shape)} do not "
                              f"fit zq {tuple(zq.shape)}")
         return matmul_int8_quads(zq, digit_quads(d, kw), n)
+
+
+def row_sq_stats(zq: torch.Tensor) -> torch.Tensor:
+    """Exact per-row sum of z^2 over a planar16 packing, f32 [rows]: one read
+    of ``zq`` int32 [rows, kw] (``csrc/row_sq_stats.cu``), on the current
+    stream of zq's own card."""
+    with span("row_sq_stats", zq=zq):
+        _check(zq, "zq", torch.int32, 2)
+        lib = _load()
+        rows, kw = zq.shape
+        if zq.numel() == 0:
+            return torch.zeros(rows, dtype=torch.float32, device=zq.device)
+        out = torch.empty(rows, dtype=torch.float32, device=zq.device)
+        with torch.cuda.device(zq.device):
+            stream = torch.cuda.current_stream(zq.device).cuda_stream
+            LAUNCHES["row_sq_stats"] += 1
+            _raise_if(lib.mx_row_sq_stats(_ptr(zq), rows, kw, _ptr(out),
+                                          ctypes.c_void_p(stream)),
+                      "row_sq_stats")
+        return out

@@ -105,7 +105,8 @@ def _snp_residual_denominators(g, x: np.ndarray,
             zsq = host_global(sharded_snp_sq_stats(g)).astype(np.float64)
         elif isinstance(g, StreamedGeno):
             zsq = np.concatenate([_host(packed_row_sq_stats(c.zq_t))
-                                  [: c.snps] for c in g.each_chunk(0)])
+                                  [: c.snps]
+                                  for c in g.each_chunk(0, row_stats=1)])
         else:
             zsq = _host(packed_row_sq_stats(g.zq_t))[: g.snps]  # diag(Z^T Z)
     with span("gwas.denominators"):

@@ -25,8 +25,8 @@ buffers of the largest chunk's size, allocated once per container.  On the
 card the copy of the next streamed chunk runs on a side stream while the
 kernels of the current one run, ordered by CUDA events; on a CPU compute
 device the same code runs as plain copies.  :data:`STREAM` counts the
-passes, the chunk products they launch and the copies, and
-:func:`copy_seconds` the copies' time.
+passes, the chunk products they launch, the chunks' row statistics and the
+copies, and :func:`copy_seconds` the copies' time.
 """
 from __future__ import annotations
 
@@ -44,10 +44,12 @@ from .solve.cg import grm_diag as _grm_diag
 from .solve.cg import host_pcg
 
 # since the last reset_stream_counts(): passes over a container's chunks,
-# the chunk products those passes launch (one packed kernel each), and the
-# streamed chunks' copies into the staging buffers with their bytes (host
-# to device on the card)
-STREAM = {"passes": 0, "products": 0, "h2d_copies": 0, "h2d_bytes": 0}
+# the chunk products those passes launch (one packed kernel each), the
+# chunks' row statistics they compute (packed_row_sq_stats, one kernel
+# each on the card; no product), and the streamed chunks' copies into the
+# staging buffers with their bytes (host to device on the card)
+STREAM = {"passes": 0, "products": 0, "row_stats": 0, "h2d_copies": 0,
+          "h2d_bytes": 0}
 _timers: list = []    # CUDA (start, end) events of copies not yet read
 _copied = 0.0         # seconds of the copies read so far
 
@@ -189,7 +191,7 @@ class StreamedGeno:
                         buf.record_stream(self._side)
         return self._slots
 
-    def each_chunk(self, products: int = 1):
+    def each_chunk(self, products: int = 1, row_stats: int = 0):
         """Each chunk in order as a panel whose words live on the compute
         device: a cached chunk as it is, a streamed one as views of a
         staging buffer, valid until the next chunk is asked for.  The copy
@@ -197,10 +199,12 @@ class StreamedGeno:
         handed over: on the card on a side stream, so that it overlaps the
         kernels the caller launches on the current chunk, with events that
         keep a buffer from being overwritten before those kernels end.
-        ``products``: the packed products the caller launches on each
-        chunk (counted in :data:`STREAM`)."""
+        ``products`` and ``row_stats``: the packed products and the row
+        statistics the caller computes on each chunk (counted in
+        :data:`STREAM`)."""
         STREAM["passes"] += 1
         STREAM["products"] += products * len(self.chunks)
+        STREAM["row_stats"] += row_stats * len(self.chunks)
         order = [i for i, c in enumerate(self.chunks) if c.host_resident]
         if not order:                 # every chunk cached: no buffers
             self._slots, self._side, self._free = None, None, [None, None]
@@ -307,7 +311,7 @@ class StreamedGeno:
         """diag(Zc Zc^T), exact per chunk and summed over them in float64
         (numpy)."""
         d = torch.zeros(self.indiv, dtype=torch.float64, device=self.device)
-        for g in self.each_chunk(int(bool(center))):
+        for g in self.each_chunk(int(bool(center)), row_stats=1):
             d += _grm_diag(g, center=center).double()
         return d.cpu().numpy()
 

@@ -146,6 +146,37 @@ def test_common_helpers_match_reference():
         ref_codec.unpack_planar16(zq, zq.shape[0], 16 * zq.shape[1]))
 
 
+def _popc(w: np.ndarray) -> np.ndarray:
+    return np.unpackbits(w[..., None].view(np.uint8), axis=-1).sum(
+        axis=-1, dtype=np.int64)
+
+
+@pytest.mark.parametrize("rows,kw", [(1, 1), (31, 3), (33, 5), (7, 351),
+                                     (5, 1408), (2, 4099)])
+@pytest.mark.parametrize("words", ["genotypes", "any", "all_two",
+                                   "all_three"])
+def test_row_sq_stats_word_arithmetic_matches_plane_loop(rows, kw, words):
+    """csrc/row_sq_stats.cu's per-word sum popc(lo ^ hi) + 3 popc(hi), on
+    uint32 words (an unsigned shift), equals the 16-plane loop on the int32
+    view: negative words, the code 3 and the largest sums included."""
+    rng = np.random.default_rng(rows * kw)
+    w = rng.integers(0, 2 ** 32, size=(rows, kw), dtype=np.uint64)
+    w = w.astype(np.uint32)
+    if words == "genotypes":   # clear the high bit of every 11 field
+        w &= ~(((w & (w >> np.uint32(1))) & np.uint32(0x55555555))
+               << np.uint32(1))
+    elif words != "any":
+        w[:] = {"all_two": 0xAAAAAAAA, "all_three": 0xFFFFFFFF}[words]
+    low = np.uint32(0x55555555)
+    hi = (w >> np.uint32(1)) & low
+    kernel = (_popc((w & low) ^ hi) + 3 * _popc(hi)).sum(axis=1)
+    zt = torch.from_numpy(w.view(np.int32))
+    plain = pt_common.packed_row_sq_stats_plain(zt)
+    np.testing.assert_array_equal(kernel.astype(np.float32), plain.numpy())
+    np.testing.assert_array_equal(pt_common.packed_row_sq_stats(zt).numpy(),
+                                  plain.numpy())
+
+
 @pytest.mark.parametrize("tracked", [False, True])
 def test_checkpoints_cross_load(tmp_path, tracked):
     g = ref_bed.simulate_genotypes(40, 300, seed=4, missing_rate=0.05)

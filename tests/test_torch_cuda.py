@@ -15,7 +15,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from miraculix_tpu_torch import _kernels  # noqa: E402
-from miraculix_tpu_torch.ops.common import decode_planar16  # noqa: E402
+from miraculix_tpu_torch.ops.common import (  # noqa: E402
+    decode_planar16, packed_row_sq_stats, packed_row_sq_stats_plain)
 from miraculix_tpu_torch.ops.dgemm import (  # noqa: E402
     packed_matmul_exact, packed_matmul_int8, packed_matmul_int8_plain,
     packed_matmul_tall, packed_matmul_tall_plain, rhs_values)
@@ -1233,3 +1234,68 @@ def test_facades_on_the_card_match_the_cpu(dev):
     api.free_compressed(obj)
     assert obj.zq_n is None and obj.zq_t is None and obj.freq is None
     assert before - torch.cuda.memory_allocated(dev) >= nbytes
+
+
+def _row_sq_words(rng, rows, kw, words):
+    """"genotypes" (codes 0-2), "any" (every bit pattern: the code 3 and the
+    sign bit) or "all_two" (the largest sums)."""
+    if words == "genotypes":
+        return _words(rng, rows, kw)
+    if words == "all_two":
+        return torch.full((rows, kw), np.int32(np.uint32(0xAAAAAAAA)).item(),
+                          dtype=torch.int32)
+    w = rng.integers(0, 2 ** 32, size=(rows, kw), dtype=np.uint64)
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("rows", [1, 31, 33, 1000])
+@pytest.mark.parametrize("kw", [1, 3, 4, 5, 351, 1408])
+@pytest.mark.parametrize("words", ["genotypes", "any", "all_two"])
+def test_row_sq_stats_matches_plain(dev, rows, kw, words):
+    zq = _row_sq_words(np.random.default_rng(rows * kw), rows, kw,
+                       words).to(dev)
+    assert torch.equal(packed_row_sq_stats(zq), packed_row_sq_stats_plain(zq))
+
+
+@pytest.mark.parametrize("rows", [1, 31, 33])
+@pytest.mark.parametrize("kw", [2047, 2048, 2051, 62592])
+@pytest.mark.parametrize("words", ["any", "all_two"])
+def test_row_sq_stats_wide_rows_match_plain(dev, rows, kw, words):
+    """Rows past the kernel's warp-a-row width take a block each; all-2
+    rows of 62,592 words sum to 4,005,888, exact in f32."""
+    zq = _row_sq_words(np.random.default_rng(rows + kw), rows, kw,
+                       words).to(dev)
+    got = packed_row_sq_stats(zq)
+    assert torch.equal(got, packed_row_sq_stats_plain(zq))
+    if words == "all_two":
+        assert float(got.max()) == 64.0 * kw
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("kw", [5, 351, 1408, 4099, 62592])
+def test_row_sq_stats_row_views_off_alignment(dev, offset, kw):
+    """A contiguous view that starts ``offset`` words past a 16-byte
+    boundary: every row's head is read word by word."""
+    rows = 33
+    buf = _row_sq_words(np.random.default_rng(kw), rows * kw + offset, 1,
+                        "any").to(dev).reshape(-1)
+    zq = buf[offset:].view(rows, kw)
+    assert zq.is_contiguous() and zq.data_ptr() % 16 == 4 * offset
+    assert torch.equal(packed_row_sq_stats(zq), packed_row_sq_stats_plain(zq))
+
+
+def test_row_sq_stats_one_launch_a_call(dev):
+    zq = _row_sq_words(np.random.default_rng(7), 1000, 1408, "any").to(dev)
+    _kernels.reset_launch_counts()
+    packed_row_sq_stats(zq)
+    assert _kernels.LAUNCHES["row_sq_stats"] == 1
+    assert sum(_kernels.LAUNCHES.values()) == 1
+    assert not _kernels.PLAIN_CALLS
+
+
+def test_row_sq_stats_refuses_what_it_does_not_take(dev):
+    zq = _row_sq_words(np.random.default_rng(8), 64, 16, "any").to(dev)
+    for bad in (zq.T, zq[:, ::2], zq.to(torch.int64), zq.reshape(-1),
+                zq.cpu()):
+        with pytest.raises(ValueError, match="contiguous 2-d torch.int32"):
+            _kernels.row_sq_stats(bad)

@@ -226,7 +226,8 @@ def test_cache_to_device_hybrid(tmp_path):
     x = np.random.default_rng(3).standard_normal(64).astype(np.float32)
     streamed.reset_stream_counts()
     got = port.grm_matvec(x)
-    assert streamed.STREAM == {"passes": 1, "products": 6, "h2d_copies": 2,
+    assert streamed.STREAM == {"passes": 1, "products": 6, "row_stats": 0,
+                               "h2d_copies": 2,
                                "h2d_bytes": port.chunks[1].nbytes
                                + port.chunks[2].nbytes}
     assert streamed.copy_seconds() > 0
@@ -270,6 +271,25 @@ def test_streamed_products_take_one_product_a_chunk(panel):
     assert streamed.STREAM["products"] == 3 * (2 + 1 + 1)
     assert sum(_kernels.PLAIN_CALLS.values()) == streamed.STREAM["products"]
     assert streamed.STREAM["h2d_copies"] == 3 * 2
+
+
+def test_streamed_row_statistics_count_one_a_chunk(panel):
+    """grm_diag's pass and the linear scan's row-statistics pass each count
+    one row statistic a chunk, apart from the chunk products (on the card
+    each is one row_sq_stats launch, chip_smoke.py; on the CPU the plain
+    loop, which is no product and counts in no PLAIN_CALLS)."""
+    _, path, _, _, _ = panel
+    port = mt.StreamedGeno.from_bed(path, chunk_snps=CHUNK, device=CPU)
+    port.cache_to_device(budget_bytes=port.chunks[0].nbytes)
+    y = np.random.default_rng(1).standard_normal(96)
+    streamed.reset_stream_counts()
+    _kernels.reset_launch_counts()
+    port.grm_diag()
+    assert streamed.STREAM["row_stats"] == port.n_chunks
+    assert streamed.STREAM["products"] == port.n_chunks
+    mt.gwas_linear(port, y)
+    assert streamed.STREAM["row_stats"] == 2 * port.n_chunks
+    assert sum(_kernels.PLAIN_CALLS.values()) == streamed.STREAM["products"]
 
 
 def test_host_panel_computing_on_the_card_never_takes_a_plain_version(
