@@ -28,11 +28,8 @@ def readings(workload: str, seed: int, jobs: int, control: bool, dev
 
     bench = harness.benchmark()
     _, conf, mix = harness.cell(bench, workload)
-    from genobench import genotypes
-
     t0 = time.perf_counter()
-    spec = genotypes.spec_of(conf, seed, dev)
-    job = harness.job_kind(mix["job"]).Job(spec, mix, seed)
+    job = harness.make_job(conf, mix, seed, dev)
     for i in range(jobs):
         job.prepare(i)
         out = job.run(i)

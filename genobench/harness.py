@@ -1,11 +1,13 @@
 """One run of one cell: set-up, a closed-loop window of jobs, the check.
 
 The cell ``<config>.<traffic>`` of ``BENCHMARK.json`` names its pieces,
-each found by name: ``configs/<config>.json`` (the panel),
+each found by name: ``configs/<config>.json`` (the deployment: a genotype
+panel, where it has ``snps``, and whatever else its jobs read),
 ``traffic/<traffic>.json`` (the mix: its job kind and parameters),
-``jobs/<kind>.py`` (the code behind a kind), and ``metrics/<name>.py``
-(one reader a per-layer metric).  Adding a cell, a configuration, a mix of
-an existing kind or a metric adds files and entries and edits none.
+``jobs/<kind>.py`` (the code behind a kind, handed the configuration
+whole), and ``metrics/<name>.py`` (one reader a per-layer metric).
+Adding a cell, a configuration, a mix, a job kind or a metric adds files
+and entries and edits none.
 
 The loop is closed with one caller: each job is submitted when the last
 has returned, and timed from its submission to its synchronized result.
@@ -131,9 +133,26 @@ class Run:
         return self._dims[tuple(shape)]
 
 
-def packing_dims(g) -> dict:
+def packing_dims(job) -> dict:
+    """(rows, genotype columns) by the word shape of each packing of the
+    job's panel, its ``GenoMatrix`` ``g``; none for a job without one."""
+    from miraculix_tpu_torch.geno import GenoMatrix
+
+    g = getattr(job, "g", None)
+    if not isinstance(g, GenoMatrix):
+        return {}
     return {tuple(g.zq_n.shape): (g.indiv, g.snps),
             tuple(g.zq_t.shape): (g.snps, g.indiv)}
+
+
+def make_job(conf: dict, mix: dict, seed: int, dev):
+    """The set-up of a cell's job: ``Job(spec, traffic, seed, config,
+    device)`` of ``jobs/<kind>.py`` (the contract: ``jobs/__init__.py``);
+    ``spec`` is None for a configuration without ``snps``."""
+    from . import genotypes
+
+    spec = genotypes.spec_of(conf, seed, dev) if "snps" in conf else None
+    return job_kind(mix["job"]).Job(spec, mix, seed, conf, dev)
 
 
 def window(job, seconds: float, sync, launches_now) -> tuple:
@@ -236,15 +255,14 @@ def drive(bench: dict, name: str, conf: dict, mix: dict, seed: int,
     import torch
 
     from miraculix_tpu_torch import _kernels
-    from . import genotypes, roofline, trace
+    from . import roofline, trace
 
     cuda = dev.type == "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if cuda:
         _kernels._load()                  # builds on a checkout's first run
-    spec = genotypes.spec_of(conf, seed, dev)
-    job = job_kind(mix["job"]).Job(spec, mix, seed)
+    job = make_job(conf, mix, seed, dev)
     job.prepare(0)
     warm = job.run(0)                     # the warm job: every shape
     del warm
@@ -258,7 +276,7 @@ def drive(bench: dict, name: str, conf: dict, mix: dict, seed: int,
 
     sync()
     setup_s = started_s_ago()
-    dims = packing_dims(job.g)
+    dims = packing_dims(job)
     _kernels.PLAIN_CALLS.clear()
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)

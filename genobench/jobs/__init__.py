@@ -2,8 +2,21 @@
 
 A traffic file ``traffic/<mix>.json`` names its kind, and the harness
 imports ``jobs/<kind>.py`` by that name.  Each kind defines ``Job(spec,
-traffic, seed)``, whose construction is the set-up (the panel and the
-inputs drawn from the seed), and on it:
+traffic, seed, config, device)``, whose construction is the set-up (the
+panel and the inputs drawn from the seed):
+
+- ``spec``: the configuration's genotype panel (``genotypes.Spec``), or
+  None where the configuration has no ``snps``;
+- ``traffic``: the mix's file, as a dict;
+- ``seed``: the run's ``--seed``;
+- ``config``: the configuration's file, as a dict, with every block a
+  deployment holds beside its panel (a pedigree, a sparse system); a kind
+  that needs only the panel ignores it;
+- ``device``: the torch device the run drives (``spec.device`` where there
+  is a panel).
+
+A job that holds its panel as a ``GenoMatrix`` in ``g`` gives the roofline
+readers their packings' dimensions.  On the job:
 
 - ``prepare(i)``: draw job i's inputs (in the window, not timed);
 - ``run(i)``: job i through the port's entry, synchronized (timed);

@@ -37,7 +37,8 @@ F64 = torch.float64
 
 
 class Job:
-    def __init__(self, spec: genotypes.Spec, traffic: dict, seed: int):
+    def __init__(self, spec: genotypes.Spec, traffic: dict, seed: int,
+                 config: dict, device: torch.device):
         from miraculix_tpu_torch import gblup as port_gblup
 
         self.spec, self.traffic, self.limits = spec, traffic, traffic["limits"]

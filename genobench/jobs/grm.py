@@ -19,7 +19,8 @@ from ..reference import grm as ref
 
 
 class Job:
-    def __init__(self, spec: genotypes.Spec, traffic: dict, seed: int):
+    def __init__(self, spec: genotypes.Spec, traffic: dict, seed: int,
+                 config: dict, device: torch.device):
         from miraculix_tpu_torch.ops import grm as port_grm
 
         self.spec, self.traffic, self.limits = spec, traffic, traffic["limits"]

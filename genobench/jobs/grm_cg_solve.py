@@ -28,7 +28,8 @@ MAX_DRAWS = 1 << 16
 
 
 class Job:
-    def __init__(self, spec: genotypes.Spec, traffic: dict, seed: int):
+    def __init__(self, spec: genotypes.Spec, traffic: dict, seed: int,
+                 config: dict, device: torch.device):
         port_cg = importlib.import_module("miraculix_tpu_torch.solve.cg")
         self.spec, self.traffic, self.limits = spec, traffic, traffic["limits"]
         self.seed = seed

@@ -23,7 +23,8 @@ F64 = torch.float64
 
 
 class Job:
-    def __init__(self, spec: genotypes.Spec, traffic: dict, seed: int):
+    def __init__(self, spec: genotypes.Spec, traffic: dict, seed: int,
+                 config: dict, device: torch.device):
         from miraculix_tpu_torch import gwas as port_gwas
 
         self.spec, self.traffic, self.limits = spec, traffic, traffic["limits"]
